@@ -1,0 +1,105 @@
+"""Pinhole camera model and COLMAP-convention constructors.
+
+Port of ``pegasus_tpu/camera.py``.  Conventions:
+
+* COLMAP extrinsics: x_cam = R_w2c @ x_world + t_w2c, +z forward.
+* The Inria Camera is constructed with R = R_w2c^T (camera-to-world
+  rotation) and T = t_w2c; ``from_inria`` accepts that layout.
+* Pixel mapping follows the CUDA rasterizer's ndc2Pix:
+  pix = ((ndc + 1) * size - 1) / 2, i.e. principal point (size-1)/2;
+  ``K(bop_convention=True)`` reports the BOP writer's cx = W/2.
+
+The extrinsics are float32 tensors on ``device``; the field of view is kept
+as float32 host scalars, so per-frame projection needs no device round trip
+for the intrinsics.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from pegasus_tpu_torch.utils.pose import qvec2rotmat
+
+
+@dataclass(frozen=True)
+class Camera:
+    """World-to-camera extrinsics + pinhole intrinsics."""
+
+    R_w2c: torch.Tensor  # [3, 3] float32
+    t_w2c: torch.Tensor  # [3] float32
+    fovx: float  # radians (a float32 value)
+    fovy: float
+    width: int = 640
+    height: int = 480
+
+    @classmethod
+    def create(cls, R_w2c, t_w2c, fovx, fovy, width, height, device="cpu") -> "Camera":
+        return cls(
+            R_w2c=torch.tensor(np.asarray(R_w2c, np.float32), device=device),
+            t_w2c=torch.tensor(np.asarray(t_w2c, np.float32), device=device),
+            fovx=float(np.float32(fovx)),
+            fovy=float(np.float32(fovy)),
+            width=int(width),
+            height=int(height),
+        )
+
+    @classmethod
+    def from_colmap(cls, qvec, tvec, fovx, fovy, width, height, device="cpu") -> "Camera":
+        return cls.create(qvec2rotmat(np.asarray(qvec)), tvec, fovx, fovy, width, height, device)
+
+    @classmethod
+    def from_inria(cls, R, T, FoVx, FoVy, width, height, device="cpu") -> "Camera":
+        """Inria Camera ctor layout: R is camera-to-world, T is world-to-camera."""
+        R = np.asarray(R, np.float32)
+        return cls.create(R.T, T, FoVx, FoVy, width, height, device)
+
+    @classmethod
+    def look_at(cls, eye, target, up, fovx, fovy, width, height, device="cpu") -> "Camera":
+        eye = np.asarray(eye, np.float64)
+        target = np.asarray(target, np.float64)
+        up = np.asarray(up, np.float64)
+        fwd = target - eye
+        fwd = fwd / np.linalg.norm(fwd)
+        right = np.cross(fwd, up)
+        right = right / np.linalg.norm(right)
+        down = np.cross(fwd, right)
+        R_w2c = np.stack([right, down, fwd], axis=0)
+        return cls.create(R_w2c, -R_w2c @ eye, fovx, fovy, width, height, device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.R_w2c.device
+
+    @property
+    def camera_center(self) -> torch.Tensor:
+        return -self.R_w2c.T @ self.t_w2c
+
+    def tan_half_fov(self) -> tuple[float, float]:
+        """float32-rounded tan(fov/2), as the reference computes it."""
+        half = np.float32(0.5)
+        return (
+            float(np.tan(half * np.float32(self.fovx))),
+            float(np.tan(half * np.float32(self.fovy))),
+        )
+
+    def focal_px(self) -> tuple[float, float]:
+        tx, ty = self.tan_half_fov()
+        return (
+            float(np.float32(self.width) / (np.float32(2.0) * np.float32(tx))),
+            float(np.float32(self.height) / (np.float32(2.0) * np.float32(ty))),
+        )
+
+    def K(self, bop_convention: bool = False) -> torch.Tensor:
+        """3x3 intrinsics; bop_convention=True uses cx = W/2, else (W-1)/2."""
+        fx, fy = self.focal_px()
+        if bop_convention:
+            cx, cy = self.width / 2.0, self.height / 2.0
+        else:
+            cx, cy = (self.width - 1) / 2.0, (self.height - 1) / 2.0
+        return torch.tensor(
+            [[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]],
+            dtype=torch.float32, device=self.device,
+        )

@@ -1,0 +1,145 @@
+"""Exact tile binning: projected splats -> depth-ordered per-tile entry lists.
+
+Replaces ``pegasus_tpu/ops/binning.py::bin_splats``.  Every on-screen splat
+emits one entry per tile of its clipped 3-sigma tile bbox (the reference's
+floor/clip/onscreen rule, binning.py:331-345):
+
+  1. count each splat's clipped bbox area and take the exclusive prefix
+     sum, which gives every splat its run of entries;
+  2. expand with ``repeat_interleave`` and build an int64 key
+     ``tile << 32 | float-bits(depth)`` (a positive float's bit pattern is
+     monotone in its value, and projection near-culls at z > 0.2);
+  3. ``torch.sort(stable=True)``: entries are generated in splat order, so
+     ties in depth keep the splat index as tiebreak, like the reference's
+     (key, src) sort;
+  4. per-tile [start, start + count) from ``searchsorted`` on the tile ids.
+
+The entry count is exactly the sum of the clipped bbox areas, so nothing
+can be truncated.  The reference's TPU-only machinery is dropped: the
+static-cap a_small / mid / big slot buckets and their footprint clamp,
+``entry_cap`` and the overflow flag, the PACKED8 fixed-point rows
+(binning.py:1-31, 57-76) and the ``_gather_rows_structured`` VJP (a
+workaround for TPU scatter cost; training is not ported yet).
+
+The compositor reads one table of per-splat parameters, struct-of-arrays
+``params[f, splat]`` (rows ``P_*`` below), through ``entry_splat``: each
+entry is the index of its splat, and the kernel gathers the fields while
+staging a batch into shared memory, so no per-entry copy of the parameters
+is written.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from pegasus_tpu_torch.ops.projection import ProjectedGaussians
+
+TILE = 16
+
+# row index in TileBins.params (struct-of-arrays over splats)
+PARAM_DIM = 12
+P_MX, P_MY = 0, 1
+P_CA, P_CB, P_CC = 2, 3, 4
+P_OPAC = 5
+P_R, P_G, P_B = 6, 7, 8
+P_DEPTH = 9
+P_RADIUS = 10
+P_OBJ = 11  # object id as an exact small float
+
+
+class TileBins(NamedTuple):
+    """Depth-ordered per-tile entry segments over a per-splat parameter table.
+
+    Tile t's entries are entry_splat[tile_start[t] : tile_start[t] +
+    tile_count[t]], front to back.  Tiles are row-major: t = ty * n_tiles_x
+    + tx.
+    """
+
+    params: torch.Tensor  # [PARAM_DIM, N] float32
+    entry_splat: torch.Tensor  # [M] int32 splat index per entry
+    tile_start: torch.Tensor  # [n_tiles] int32
+    tile_count: torch.Tensor  # [n_tiles] int32
+    n_tiles_x: int
+    n_tiles_y: int
+    max_object_id: int  # largest object id among binned splats (-1 if none)
+
+
+def tile_bboxes(proj: ProjectedGaussians, width: int, height: int, tile: int = TILE):
+    """Clipped tile bbox (tx0, ty0, w, h) and area per splat; area is 0 for
+    splats that are invalid or wholly off screen."""
+    ntx = -(-width // tile)
+    nty = -(-height // tile)
+    mx, my, r = proj.mean_x, proj.mean_y, proj.radius
+
+    def tile_of(v, n):
+        return torch.clamp(torch.floor(v / tile), 0, n - 1).to(torch.int64)
+
+    tx0, tx1 = tile_of(mx - r, ntx), tile_of(mx + r, ntx)
+    ty0, ty1 = tile_of(my - r, nty), tile_of(my + r, nty)
+    onscreen = (
+        proj.valid
+        & (mx + r >= 0) & (mx - r < width)
+        & (my + r >= 0) & (my - r < height)
+    )
+    w_t = tx1 - tx0 + 1
+    h_t = ty1 - ty0 + 1
+    area = torch.where(onscreen, w_t * h_t, torch.zeros_like(w_t))
+    return tx0, ty0, w_t, area
+
+
+def pack_params(proj: ProjectedGaussians) -> torch.Tensor:
+    """[PARAM_DIM, N] float32 parameter table (P_* row order)."""
+    return torch.stack(
+        [
+            proj.mean_x, proj.mean_y,
+            proj.conic_a, proj.conic_b, proj.conic_c,
+            proj.opacity,
+            proj.color_r, proj.color_g, proj.color_b,
+            proj.depth,
+            proj.radius,
+            proj.object_id.to(torch.float32),
+        ],
+        dim=0,
+    ).contiguous()
+
+
+def bin_splats(
+    proj: ProjectedGaussians, width: int, height: int, tile: int = TILE
+) -> TileBins:
+    dev = proj.mean_x.device
+    ntx = -(-width // tile)
+    nty = -(-height // tile)
+    n_tiles = ntx * nty
+    n = proj.mean_x.shape[0]
+
+    tx0, ty0, w_t, area = tile_bboxes(proj, width, height, tile)
+    live_obj = torch.where(area > 0, proj.object_id.to(torch.int64), -1)
+    obj_max = torch.cat([live_obj, live_obj.new_full((1,), -1)]).max()
+    # the one host sync of a frame: the entry count sizes the expansion
+    m, max_object_id = torch.stack([area.sum(), obj_max]).tolist()
+
+    splat = torch.repeat_interleave(torch.arange(n, device=dev), area, output_size=m)
+    first = torch.cumsum(area, 0) - area  # exclusive prefix sum
+    j = torch.arange(m, device=dev) - first[splat]  # entry's rank in its bbox
+    w_s = w_t[splat]
+    tile_id = (ty0[splat] + j // w_s) * ntx + tx0[splat] + j % w_s
+
+    depth_bits = proj.depth.contiguous().view(torch.int32).to(torch.int64)[splat]
+    key = (tile_id << 32) | depth_bits
+    sorted_key, order = torch.sort(key, stable=True)
+    entry_splat = splat[order].to(torch.int32)
+
+    bounds = torch.searchsorted(
+        sorted_key >> 32, torch.arange(n_tiles + 1, device=dev, dtype=torch.int64)
+    )
+    return TileBins(
+        params=pack_params(proj),
+        entry_splat=entry_splat,
+        tile_start=bounds[:-1].to(torch.int32),
+        tile_count=(bounds[1:] - bounds[:-1]).to(torch.int32),
+        n_tiles_x=ntx,
+        n_tiles_y=nty,
+        max_object_id=max_object_id,
+    )

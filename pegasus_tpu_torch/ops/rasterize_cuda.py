@@ -1,0 +1,281 @@
+"""Tile-compositing rasterizer: project -> exact bin -> CUDA composite.
+
+Replaces ``pegasus_tpu/ops/rasterize_pallas.py`` (``rasterize_pallas`` and
+``composite_tiles_pallas``).  ``composite_tiles`` launches the hand-written
+sm_90a kernel ``csrc/composite_tiles.cu`` for CUDA tensors and runs its
+plain torch version, ``composite_tiles_torch``, for CPU tensors; there is
+no fallback from one to the other.  The TPU knobs are dropped:
+``tiles_per_program``, ``chunk``, ``pack_params`` and the binning
+budgets / caps exist for Mosaic's static shapes and VMEM windows
+(rasterize_pallas.py:379-528), and exact binning has none of them.
+
+Source note for the kernel (what bounds it on an H100 and what the design
+does about it) is at the top of ``csrc/composite_tiles.cu``.
+
+Output channels of both versions, per pixel ([H, W, F], F = 5 + 3K + 2):
+  0:3 rgb (premultiplied, no background), 3 depth, 4 alpha, 5:5+K seg,
+  5+K:5+2K vis (environment excluded), 5+2K:5+3K amodal log-transmittance,
+  5+3K t_full, 5+3K+1 t_noenv.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+from pegasus_tpu_torch.camera import Camera
+from pegasus_tpu_torch.gs.cloud import GaussianCloud
+from pegasus_tpu_torch.ops import binning as B
+from pegasus_tpu_torch.ops.binning import TileBins, bin_splats
+from pegasus_tpu_torch.ops.projection import project_gaussians
+from pegasus_tpu_torch.ops.rasterize_ref import RenderOutputs
+
+MAX_OBJECTS_LIMIT = 32  # the kernel's largest register-resident K
+
+_CSRC = Path(__file__).resolve().parents[1] / "csrc"
+_BUILD_DIR = _CSRC / "build"
+_KERNEL_SRC = _CSRC / "composite_tiles.cu"
+_NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+_LIB = None
+
+
+def num_channels(max_objects: int) -> int:
+    return 5 + 3 * max_objects + 2
+
+
+def _find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None:
+        cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+        if cand.exists():
+            nvcc = str(cand)
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found (PATH or $CUDA_HOME/bin): cannot build "
+            f"{_KERNEL_SRC.name}"
+        )
+    return nvcc
+
+
+def build_kernel() -> tuple[Path, str]:
+    """Compile ``composite_tiles.cu`` into a shared library, once per source
+    and flag set.  Returns (library path, compiler log; empty if cached).
+    Raises if nvcc is missing or the build fails."""
+    digest = hashlib.sha256(
+        _KERNEL_SRC.read_bytes() + " ".join(_NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    lib_path = _BUILD_DIR / f"libcomposite_tiles_{digest}.so"
+    if lib_path.exists():
+        return lib_path, ""
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [_find_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_KERNEL_SRC)],
+        capture_output=True, text=True,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed to build {_KERNEL_SRC.name}:\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, lib_path)
+    return lib_path, proc.stdout + proc.stderr
+
+
+def _kernel_lib():
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build_kernel()[0]))
+        p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        lib.composite_tiles_launch.argtypes = [
+            p, i64, p, p, p, p, i32, i32, i32, i32, i32, p,
+        ]
+        lib.composite_tiles_launch.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def _check_bins(bins: TileBins, width: int, height: int, max_objects: int) -> None:
+    if (bins.n_tiles_x, bins.n_tiles_y) != (-(-width // B.TILE), -(-height // B.TILE)):
+        raise ValueError(
+            f"bins cover {bins.n_tiles_x}x{bins.n_tiles_y} tiles, not a {width}x{height} image"
+        )
+    if not 1 <= max_objects <= MAX_OBJECTS_LIMIT:
+        raise ValueError(
+            f"max_objects={max_objects} outside 1..{MAX_OBJECTS_LIMIT} "
+            "(the compositor keeps K accumulators in registers)"
+        )
+    if bins.max_object_id >= max_objects:
+        raise ValueError(
+            f"object id {bins.max_object_id} >= max_objects={max_objects}: "
+            "its seg/vis/amodal channel would be dropped"
+        )
+    n_tiles = bins.n_tiles_x * bins.n_tiles_y
+    expect = {
+        "params": (bins.params, torch.float32, (B.PARAM_DIM, bins.params.shape[1])),
+        "entry_splat": (bins.entry_splat, torch.int32, (bins.entry_splat.numel(),)),
+        "tile_start": (bins.tile_start, torch.int32, (n_tiles,)),
+        "tile_count": (bins.tile_count, torch.int32, (n_tiles,)),
+    }
+    dev = bins.params.device
+    for name, (t, dtype, shape) in expect.items():
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, params on {dev}")
+        if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(
+                f"{name}: want contiguous {dtype} {shape}, got "
+                f"{t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}"
+            )
+
+
+def composite_tiles(
+    bins: TileBins, width: int, height: int, max_objects: int
+) -> torch.Tensor:
+    """Composite every tile's entries front to back -> [H, W, F] float32.
+
+    CPU tensors run ``composite_tiles_torch``; CUDA tensors launch the
+    kernel on the current stream (built at first use) or raise."""
+    _check_bins(bins, width, height, max_objects)
+    if bins.params.device.type == "cpu":
+        return composite_tiles_torch(bins, width, height, max_objects)
+    if bins.params.device.type != "cuda":
+        raise ValueError(f"composite_tiles: unsupported device {bins.params.device}")
+    dev = bins.params.device
+    out = torch.empty(
+        (height, width, num_channels(max_objects)), dtype=torch.float32, device=dev
+    )
+    lib = _kernel_lib()
+    with torch.cuda.device(dev):
+        err = lib.composite_tiles_launch(
+            bins.params.data_ptr(), bins.params.shape[1],
+            bins.entry_splat.data_ptr(), bins.tile_start.data_ptr(),
+            bins.tile_count.data_ptr(), out.data_ptr(),
+            width, height, bins.n_tiles_x, bins.n_tiles_y, max_objects,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"composite_tiles kernel launch failed: CUDA error {err}")
+    composite_tiles.launches += 1
+    return out
+
+
+composite_tiles.launches = 0
+
+
+def composite_tiles_torch(
+    bins: TileBins, width: int, height: int, max_objects: int, chunk: int = 64
+) -> torch.Tensor:
+    """Plain torch version of the kernel, same inputs and [H, W, F] output.
+
+    Vectorised over tiles: step c takes entries [c*chunk, (c+1)*chunk) of
+    every tile still holding that many, composites the chunk with an
+    exclusive cumulative product of (1 - alpha), and carries the
+    transmittances to the next step."""
+    _check_bins(bins, width, height, max_objects)
+    dev = bins.params.device
+    k = max_objects
+    ntx, nty = bins.n_tiles_x, bins.n_tiles_y
+    n_tiles = ntx * nty
+    px_n = B.TILE * B.TILE
+
+    lin = torch.arange(px_n, device=dev)
+    tiles = torch.arange(n_tiles, device=dev)
+    pxs = ((tiles % ntx)[:, None] * B.TILE + lin % B.TILE).to(torch.float32)
+    pys = ((tiles // ntx)[:, None] * B.TILE + lin // B.TILE).to(torch.float32)
+
+    t_full = torch.ones(n_tiles, px_n, device=dev)
+    t_ne = torch.ones(n_tiles, px_n, device=dev)
+    acc = torch.zeros(n_tiles, px_n, 5 + 2 * k, device=dev)
+    amodal_log = torch.zeros(n_tiles, px_n, k, device=dev)
+
+    start = bins.tile_start.long()
+    count = bins.tile_count.long()
+    entry_splat = bins.entry_splat.long()
+    kk = torch.arange(k, device=dev)
+    max_count = int(count.max()) if n_tiles else 0
+    for lo in range(0, max_count, chunk):
+        act = torch.nonzero(count > lo)[:, 0]  # tiles with entries left
+        e = lo + torch.arange(chunk, device=dev)
+        ok = e[None, :] < count[act, None]  # [A, C]
+        idx = torch.where(ok, start[act, None] + e[None, :], 0)
+        p = bins.params[:, entry_splat[idx]]  # [F, A, C]
+
+        dx = pxs[act][:, :, None] - p[B.P_MX][:, None, :]  # [A, PX, C]
+        dy = pys[act][:, :, None] - p[B.P_MY][:, None, :]
+        power = (
+            -0.5 * (p[B.P_CA][:, None, :] * dx * dx + p[B.P_CC][:, None, :] * dy * dy)
+            - p[B.P_CB][:, None, :] * dx * dy
+        )
+        alpha = torch.clamp(
+            p[B.P_OPAC][:, None, :] * torch.exp(torch.clamp(power, max=0.0)), max=0.99
+        )
+        rad = p[B.P_RADIUS][:, None, :]
+        keep = (
+            (power <= 0.0) & (alpha >= 1.0 / 255.0)
+            & (torch.abs(dx) <= rad) & (torch.abs(dy) <= rad) & ok[:, None, :]
+        )
+        a = torch.where(keep, alpha, torch.zeros_like(alpha))
+
+        obj = p[B.P_OBJ].long()  # [A, C]
+        onehot = (obj[..., None] == kk).to(torch.float32)  # [A, C, K]
+        feat = torch.cat(
+            [p[[B.P_R, B.P_G, B.P_B, B.P_DEPTH]].permute(1, 2, 0),
+             torch.ones_like(onehot[..., :1]), onehot],
+            dim=-1,
+        )  # [A, C, 5 + K]
+
+        def chain(a_c, t0):
+            keep_frac = torch.cumprod(1.0 - a_c, dim=-1)
+            excl = torch.cat([torch.ones_like(keep_frac[..., :1]), keep_frac[..., :-1]], -1)
+            return a_c * excl * t0[:, :, None], t0 * keep_frac[..., -1]
+
+        w_full, t_full[act] = chain(a, t_full[act])
+        a_ne = torch.where((obj == 0)[:, None, :], torch.zeros_like(a), a)
+        w_ne, t_ne[act] = chain(a_ne, t_ne[act])
+        acc[act] += torch.cat(
+            [torch.bmm(w_full, feat), torch.bmm(w_ne, onehot)], dim=-1
+        )
+        amodal_log[act] += torch.bmm(torch.log1p(-a), onehot)
+
+    out = torch.cat([acc, amodal_log, t_full[..., None], t_ne[..., None]], dim=-1)
+    out = out.reshape(nty, ntx, B.TILE, B.TILE, -1).permute(0, 2, 1, 3, 4)
+    return out.reshape(nty * B.TILE, ntx * B.TILE, -1)[:height, :width].contiguous()
+
+
+def outputs_from_channels(out: torch.Tensor, background, max_objects: int) -> RenderOutputs:
+    """[H, W, F] compositor channels -> RenderOutputs, blending the
+    background behind the remaining transmittance."""
+    k = max_objects
+    bg = torch.as_tensor(background, dtype=torch.float32, device=out.device)
+    t_full = out[..., 5 + 3 * k]
+    return RenderOutputs(
+        rgb=out[..., 0:3] + t_full[..., None] * bg,
+        depth=out[..., 3],
+        alpha=out[..., 4],
+        seg_weights=out[..., 5 : 5 + k],
+        vis_weights=out[..., 5 + k : 5 + 2 * k],
+        amodal=1.0 - torch.exp(out[..., 5 + 2 * k : 5 + 3 * k]),
+    )
+
+
+def rasterize(
+    cloud: GaussianCloud,
+    cam: Camera,
+    background=(0.0, 0.0, 0.0),
+    sh_degree: int | None = None,
+    scaling_modifier: float = 1.0,
+    max_objects: int = 8,
+) -> RenderOutputs:
+    """Drop-in alternative to ``rasterize_reference`` (same RenderOutputs)."""
+    proj = project_gaussians(cloud, cam, sh_degree, scaling_modifier)
+    bins = bin_splats(proj, cam.width, cam.height)
+    out = composite_tiles(bins, cam.width, cam.height, max_objects)
+    return outputs_from_channels(out, background, max_objects)

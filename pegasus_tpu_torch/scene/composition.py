@@ -1,0 +1,100 @@
+"""Scene composition: one merged cloud, per-body poses applied per splat.
+
+Port of ``pegasus_tpu/scene/composition.py``.  The environment and the
+canonical (unposed) objects merge ONCE into a ``SceneTemplate`` whose
+``object_id`` is the body id; a pose gathers each splat's body rotation and
+translation by that id and applies the xyz, per-splat quaternion and SH-band
+rotations to the whole cloud at once.  Poses are absolute samples of the
+physics trajectory, rotating each body about its canonical centroid.  The
+gather is plain indexing (the reference's one-hot matmul, lines 84-90, is a
+TPU workaround).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from pegasus_tpu_torch.gs.cloud import GaussianCloud, merge
+from pegasus_tpu_torch.utils import quaternion as quat
+from pegasus_tpu_torch.utils import sh as shlib
+
+
+@dataclass(frozen=True)
+class SceneTemplate:
+    """Merged canonical scene cloud + per-body metadata.
+
+    body index == bullet body id (0 = environment, objects 1..B-1), matching
+    the trajectory JSON ids.
+    """
+
+    cloud: GaussianCloud  # merged, object_id = body id
+    pivots: torch.Tensor  # [B, 3] canonical per-body rotation pivot (centroid)
+    num_bodies: int
+
+    @classmethod
+    def build(
+        cls,
+        env: GaussianCloud,
+        objects: Sequence[GaussianCloud],
+        pad_to: int | None = None,
+    ) -> "SceneTemplate":
+        clouds = [env.with_object_id(0)]
+        pivots = [torch.zeros(3, dtype=torch.float32, device=env.device)]  # env never rotates
+        for i, obj in enumerate(objects):
+            clouds.append(obj.with_object_id(i + 1))
+            pivots.append(obj.centroid())
+        scene = merge(clouds)
+        if pad_to is not None:
+            scene = scene.padded(pad_to)
+        return cls(cloud=scene, pivots=torch.stack(pivots, dim=0), num_bodies=len(objects) + 1)
+
+
+def pose_scene(
+    template: SceneTemplate,
+    body_R: torch.Tensor,  # [B, 3, 3]
+    body_t: torch.Tensor,  # [B, 3]
+) -> GaussianCloud:
+    """Apply per-body rigid poses to the merged scene cloud: each body
+    rotates about its centroid, then translates; splat quaternions are
+    premultiplied by the body rotation and SH bands 1..3 rotate with it."""
+    cloud = template.cloud
+    bid = torch.clamp(cloud.object_id.long(), 0, template.num_bodies - 1)
+
+    R_g = body_R[bid]  # [N, 3, 3]
+    p_g = template.pivots[bid]
+    rel = cloud.xyz - p_g
+    new_xyz = (R_g @ rel[:, :, None])[:, :, 0] + p_g + body_t[bid]
+
+    new_rot = quat.quat_mul(quat.rotmat_to_quat(body_R)[bid], cloud.get_rotation())
+
+    f_rest = cloud.f_rest
+    if f_rest.shape[1] > 0:
+        outs = []
+        start = 0
+        for band in range(1, cloud.sh_degree + 1):
+            dim = shlib._BAND_DIMS[band]
+            D = shlib.sh_band_rotation(body_R, band)  # [B, dim, dim]
+            outs.append(D[bid] @ f_rest[:, start : start + dim])
+            start += dim
+        if start < f_rest.shape[1]:
+            outs.append(f_rest[:, start:])
+        f_rest = torch.cat(outs, dim=1)
+
+    return cloud.replace(xyz=new_xyz, rot=new_rot, f_rest=f_rest)
+
+
+def poses_from_trajectory_step(times_t, times_q_xyzw, step: int, device="cpu"):
+    """Dense per-body (R [B,3,3], t [B,3]) float32 at a timestep.
+
+    times_t: [B, T, 3]; times_q_xyzw: [B, T, 4] (Bullet layout).  Body 0
+    (environment) is forced to identity: the env cloud is never posed."""
+    t = torch.tensor(np.asarray(times_t)[:, step, :], dtype=torch.float32, device=device)
+    q = torch.tensor(np.asarray(times_q_xyzw)[:, step, :], dtype=torch.float32, device=device)
+    R = quat.quat_to_rotmat(quat.xyzw_to_wxyz(q))
+    R[0] = torch.eye(3, dtype=torch.float32, device=device)
+    t[0] = 0.0
+    return R, t

@@ -1,0 +1,113 @@
+"""The CUDA tile compositor against its plain torch version, on the card.
+
+Every test here needs a CUDA device and ``nvcc`` (the kernel is built at
+first use); without a card they skip.  Run them on a GPU machine with
+
+    python -m pytest -m gpu tests/test_torch_kernel.py
+
+Tolerance: both versions composite the same entries in the same order in
+float32 and differ only in rounding (sequential products against a
+cumulative product), so every channel must agree to > 60 dB.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from pegasus_tpu_torch.camera import Camera
+from pegasus_tpu_torch.gs.cloud import merge
+from pegasus_tpu_torch.ops.binning import bin_splats
+from pegasus_tpu_torch.ops.projection import project_gaussians
+from pegasus_tpu_torch.ops.rasterize_cuda import (composite_tiles,
+                                                   composite_tiles_torch,
+                                                   outputs_from_channels,
+                                                   rasterize)
+from pegasus_tpu_torch.ops.rasterize_ref import rasterize_reference
+from pegasus_tpu_torch.testing import make_box_cloud, make_plane_cloud
+
+torch.set_num_threads(1)
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda:0")
+
+
+def psnr(a, b, peak=1.0):
+    mse = float(((a.double() - b.double()) ** 2).mean())
+    return 10 * np.log10(peak**2 / mse) if mse > 0 else np.inf
+
+
+def channel_psnr(ref, out):
+    return {
+        name: psnr(getattr(ref, name), getattr(out, name),
+                   max(float(ref.depth.max()), 1e-6) if name == "depth" else 1.0)
+        for name in ref._fields
+    }
+
+
+def scene(device, n_objects=6, n_plane=20_000, n_box=2_000, seed=7):
+    rng = np.random.default_rng(seed)
+    objs = [
+        make_box_cloud(rng, n=n_box, center=(0.1 * (i % 6) - 0.2, 0.05 * (i % 6), 0.08 + 0.02 * (i // 6)),
+                       object_id=i + 1, rgb=((0.2 + 0.1 * i) % 1.0, 0.5, 0.4), device=device)
+        for i in range(n_objects)
+    ]
+    return merge([make_plane_cloud(rng, n=n_plane, size=2.0, device=device)] + objs)
+
+
+def camera(view, device, width=640, height=480):
+    eye, target = {"orbit": ((0.9, 0.7, 0.9), (0, 0, 0.05)),
+                   "grazing": ((0.85, 0.1, 0.10), (-0.6, 0, 0.04))}[view]
+    return Camera.look_at(eye=eye, target=target, up=(0, 0, 1), fovx=np.deg2rad(60),
+                          fovy=np.deg2rad(47), width=width, height=height, device=device)
+
+
+@pytest.mark.parametrize("view,width,height,n_objects", [
+    ("orbit", 640, 480, 6),     # K = 7, the main path's shape
+    ("grazing", 640, 480, 6),
+    ("orbit", 70, 50, 6),       # ragged edge tiles
+    ("orbit", 320, 240, 12),    # K = 13: the K <= 16 instance
+    ("grazing", 320, 240, 25),  # K = 26: the K <= 32 instance
+])
+def test_kernel_matches_plain(cuda, view, width, height, n_objects):
+    cam = camera(view, cuda, width, height)
+    k = n_objects + 1
+    bins = bin_splats(project_gaussians(scene(cuda, n_objects), cam), width, height)
+    got = composite_tiles(bins, width, height, k)
+    want = composite_tiles_torch(bins, width, height, k)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (height, width, 5 + 3 * k + 2)
+    assert torch.isfinite(got).all()
+    db = channel_psnr(outputs_from_channels(want, (0, 0, 0), k), outputs_from_channels(got, (0, 0, 0), k))
+    assert min(db.values()) > 60, db
+    tn = 5 + 3 * k
+    assert torch.allclose(got[..., tn:], want[..., tn:], atol=1e-5)  # transmittances
+
+
+def test_rasterize_matches_golden_on_card(cuda):
+    cam = camera("orbit", cuda, 160, 120)
+    s = scene(cuda, n_plane=8_000, n_box=800)
+    db = channel_psnr(rasterize_reference(s, cam, background=(0.1, 0.1, 0.1), max_objects=7),
+                      rasterize(s, cam, background=(0.1, 0.1, 0.1), max_objects=7))
+    assert min(db.values()) > 40, db
+
+
+def test_kernel_counts_launches_and_checks_inputs(cuda):
+    cam = camera("orbit", cuda, 64, 48)
+    bins = bin_splats(project_gaussians(scene(cuda, n_plane=2_000, n_box=200), cam), 64, 48)
+    before = composite_tiles.launches
+    composite_tiles(bins, 64, 48, 7)
+    composite_tiles_torch(bins, 64, 48, 7)  # the plain version does not count
+    assert composite_tiles.launches == before + 1
+    with pytest.raises(ValueError, match="max_objects"):
+        composite_tiles(bins, 64, 48, 6)  # object id 6 needs K >= 7
+    with pytest.raises(ValueError, match="tile_count"):
+        composite_tiles(bins._replace(tile_count=bins.tile_count.long()), 64, 48, 7)
+    with pytest.raises(ValueError, match="on cpu"):
+        composite_tiles(bins._replace(entry_splat=bins.entry_splat.cpu()), 64, 48, 7)
+    assert composite_tiles.launches == before + 1
