@@ -9,7 +9,7 @@ Port of ``pegasus_tpu/camera.py``.  Conventions:
   pix = ((ndc + 1) * size - 1) / 2, i.e. principal point (size-1)/2;
   ``K(bop_convention=True)`` reports the BOP writer's cx = W/2.
 
-The extrinsics are float32 tensors on ``device``; the field of view is kept
+The extrinsics are float32 tensors on ``device`` (the card by default); the field of view is kept
 as float32 host scalars, so per-frame projection needs no device round trip
 for the intrinsics.
 """
@@ -21,6 +21,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from pegasus_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from pegasus_tpu_torch.utils.pose import qvec2rotmat
 
 
@@ -36,7 +37,8 @@ class Camera:
     height: int = 480
 
     @classmethod
-    def create(cls, R_w2c, t_w2c, fovx, fovy, width, height, device="cpu") -> "Camera":
+    def create(cls, R_w2c, t_w2c, fovx, fovy, width, height, device=DEFAULT_DEVICE) -> "Camera":
+        device = resolve_device(device)
         return cls(
             R_w2c=torch.tensor(np.asarray(R_w2c, np.float32), device=device),
             t_w2c=torch.tensor(np.asarray(t_w2c, np.float32), device=device),
@@ -47,17 +49,17 @@ class Camera:
         )
 
     @classmethod
-    def from_colmap(cls, qvec, tvec, fovx, fovy, width, height, device="cpu") -> "Camera":
+    def from_colmap(cls, qvec, tvec, fovx, fovy, width, height, device=DEFAULT_DEVICE) -> "Camera":
         return cls.create(qvec2rotmat(np.asarray(qvec)), tvec, fovx, fovy, width, height, device)
 
     @classmethod
-    def from_inria(cls, R, T, FoVx, FoVy, width, height, device="cpu") -> "Camera":
+    def from_inria(cls, R, T, FoVx, FoVy, width, height, device=DEFAULT_DEVICE) -> "Camera":
         """Inria Camera ctor layout: R is camera-to-world, T is world-to-camera."""
         R = np.asarray(R, np.float32)
         return cls.create(R.T, T, FoVx, FoVy, width, height, device)
 
     @classmethod
-    def look_at(cls, eye, target, up, fovx, fovy, width, height, device="cpu") -> "Camera":
+    def look_at(cls, eye, target, up, fovx, fovy, width, height, device=DEFAULT_DEVICE) -> "Camera":
         eye = np.asarray(eye, np.float64)
         target = np.asarray(target, np.float64)
         up = np.asarray(up, np.float64)

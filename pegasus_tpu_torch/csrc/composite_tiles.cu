@@ -39,20 +39,23 @@
 // 'over' operator is associative, so partial composites combine in order)
 // and overlapping the next batch's gather with compute are later work.
 //
+// The same kernel is the forward of the training path (K2', the forward of
+// pegasus_tpu/ops/pallas_vjp.py::composite_core), launched from the
+// autograd Function in ops/composite_vjp.py; its backward is
+// composite_tiles_bwd.cu, which recomputes alpha with the same
+// entry_alpha() from composite_common.cuh.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (ops/rasterize_cuda.py does this at first use).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "composite_common.cuh"
+
 namespace {
 
-constexpr int TILE = 16;
-constexpr int PX = TILE * TILE;  // threads per block: one per pixel
-
-// parameter rows (ops/binning.py P_*)
-constexpr int P_MX = 0, P_MY = 1, P_CA = 2, P_CB = 3, P_CC = 4, P_OPAC = 5;
-constexpr int P_R = 6, P_G = 7, P_B = 8, P_DEPTH = 9, P_RADIUS = 10, P_OBJ = 11;
+using namespace composite;
 
 template <int K>
 __global__ void __launch_bounds__(PX)
@@ -106,15 +109,10 @@ composite_tiles_kernel(const float* __restrict__ params, int64_t n_splats,
     __syncthreads();
 
     for (int j = 0; j < n_b; ++j) {
-      const float dx = fx - s_mx[j];
-      const float dy = fy - s_my[j];
-      const float power =
-          -0.5f * (s_ca[j] * dx * dx + s_cc[j] * dy * dy) - s_cb[j] * dx * dy;
-      const float alpha = fminf(s_op[j] * expf(fminf(power, 0.f)), 0.99f);
-      const float rad = s_rad[j];
-      const bool keep = power <= 0.f && alpha >= 1.f / 255.f &&
-                        fabsf(dx) <= rad && fabsf(dy) <= rad;
-      if (!keep) continue;
+      float dx, dy, exppow, raw, alpha;
+      if (!entry_alpha(fx, fy, s_mx[j], s_my[j], s_ca[j], s_cb[j], s_cc[j],
+                       s_op[j], s_rad[j], dx, dy, exppow, raw, alpha))
+        continue;
 
       const int obj = s_obj[j];
       const float w = alpha * t_full;

@@ -15,6 +15,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from pegasus_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from pegasus_tpu_torch.utils import quaternion as quat
 
 _SH_DEGREE_OF_REST = {0: 0, 3: 1, 8: 2, 15: 3}
@@ -54,9 +55,10 @@ class GaussianCloud:
         rot,
         object_id=None,
         alive=None,
-        device="cpu",
+        device=DEFAULT_DEVICE,
     ) -> "GaussianCloud":
         """Build from numpy arrays (or CPU tensors), copied onto ``device``."""
+        device = resolve_device(device)
 
         def f32(x):
             return torch.tensor(np.asarray(x, np.float32), device=device)

@@ -17,6 +17,7 @@ from typing import Dict, Tuple
 
 import numpy as np
 
+from pegasus_tpu_torch.device import DEFAULT_DEVICE
 from pegasus_tpu_torch.gs.cloud import GaussianCloud
 
 _PLY_DTYPES = {
@@ -82,7 +83,7 @@ def read_ply_vertex_data(path: str) -> Dict[str, np.ndarray]:
     return {n: np.ascontiguousarray(data[n]) for n, _ in props}
 
 
-def load_gs_ply(path: str, sh_degree: int = 3, device="cpu") -> GaussianCloud:
+def load_gs_ply(path: str, sh_degree: int = 3, device=DEFAULT_DEVICE) -> GaussianCloud:
     """Load an Inria GS checkpoint PLY into a GaussianCloud
     (port of load_ply, reference: src/gs/gaussian_model.py:231-288)."""
     v = read_ply_vertex_data(path)
@@ -156,3 +157,38 @@ def save_gs_ply(cloud: GaussianCloud, path: str) -> None:
         header += ["end_header"]
         f.write(("\n".join(header) + "\n").encode())
         f.write(table.tobytes())
+
+
+def save_o3d_ply(cloud: GaussianCloud, path: str) -> None:
+    """Plain xyz/rgb PLY beside the GS checkpoint — the reference's
+    save_ply writes ``point_cloud_o3d.ply`` for meshing/visualization
+    consumers (reference: src/gs/gaussian_model.py:475-479); the URDF
+    generator and alignment tools read it."""
+    from pegasus_tpu_torch.utils import sh as shlib
+
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    cloud = cloud.to("cpu")
+    xyz = np.asarray(cloud.xyz, np.float32)
+    n = xyz.shape[0]
+    rgb = np.clip(
+        np.asarray(shlib.sh2rgb(np.asarray(cloud.f_dc)[:, 0, :])), 0.0, 1.0
+    )
+    rgb_u8 = (rgb * 255).astype(np.uint8)
+    with open(path, "wb") as f:
+        header = [
+            "ply", "format binary_little_endian 1.0",
+            f"element vertex {n}",
+            "property float x", "property float y", "property float z",
+            "property uchar red", "property uchar green", "property uchar blue",
+            "end_header",
+        ]
+        f.write(("\n".join(header) + "\n").encode())
+        row = np.zeros(
+            n, dtype=[("x", "<f4"), ("y", "<f4"), ("z", "<f4"),
+                      ("red", "u1"), ("green", "u1"), ("blue", "u1")]
+        )
+        row["x"], row["y"], row["z"] = xyz[:, 0], xyz[:, 1], xyz[:, 2]
+        row["red"], row["green"], row["blue"] = (
+            rgb_u8[:, 0], rgb_u8[:, 1], rgb_u8[:, 2]
+        )
+        f.write(row.tobytes())

@@ -8,19 +8,48 @@ f))}``) and both packages then see the same values.  Numpy only here.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from pegasus_tpu_torch.camera import Camera
+from pegasus_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from pegasus_tpu_torch.gs.cloud import GaussianCloud
+from pegasus_tpu_torch.training.trainer import GROUPS, TrainState
 
 CLOUD_FIELDS = ("xyz", "f_dc", "f_rest", "opacity", "scale", "rot", "object_id", "alive")
 CAMERA_FIELDS = ("R_w2c", "t_w2c", "fovx", "fovy", "width", "height")
 
 
-def cloud_from_numpy(d: dict, device="cpu") -> GaussianCloud:
+def cloud_from_numpy(d: dict, device=DEFAULT_DEVICE) -> GaussianCloud:
     """{field: array} with every ``CLOUD_FIELDS`` key -> GaussianCloud."""
     return GaussianCloud.create(**{f: np.asarray(d[f]) for f in CLOUD_FIELDS}, device=device)
 
 
-def camera_from_numpy(d: dict, device="cpu") -> Camera:
+def camera_from_numpy(d: dict, device=DEFAULT_DEVICE) -> Camera:
     """{field: array or scalar} with every ``CAMERA_FIELDS`` key -> Camera."""
     return Camera.create(*(d[f] for f in CAMERA_FIELDS), device=device)
+
+
+def train_state_from_numpy(d: dict, device=DEFAULT_DEVICE) -> TrainState:
+    """A training state from numpy: ``cloud`` ({field: array}, every
+    ``CLOUD_FIELDS`` key), ``mu`` / ``nu`` ({group: array}, Adam's moments of
+    each parameter group), ``count`` ({group: int}, optax's update count of
+    each group; they must agree), ``xyz_grad_accum``, ``denom``, ``step``,
+    ``spatial_lr_scale`` and, optionally, ``max_radii2d`` (zeros otherwise).
+    Both packages can then continue from one mid-training state."""
+    device = resolve_device(device)
+    counts = {int(d["count"][g]) for g in GROUPS}
+    if len(counts) != 1:
+        raise ValueError(f"Adam counts differ between groups: {d['count']}")
+    f32 = lambda x: torch.tensor(np.asarray(x, np.float32), device=device)
+    cap = np.asarray(d["denom"]).shape[0]
+    return TrainState(
+        cloud=cloud_from_numpy(d["cloud"], device=device),
+        mu={g: f32(d["mu"][g]) for g in GROUPS},
+        nu={g: f32(d["nu"][g]) for g in GROUPS},
+        count=counts.pop(),
+        xyz_grad_accum=f32(d["xyz_grad_accum"]),
+        denom=f32(d["denom"]),
+        max_radii2d=f32(d.get("max_radii2d", np.zeros(cap))),
+        step=int(d["step"]),
+        spatial_lr_scale=float(d["spatial_lr_scale"]),
+    )

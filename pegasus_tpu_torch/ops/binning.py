@@ -19,7 +19,9 @@ can be truncated.  The reference's TPU-only machinery is dropped: the
 static-cap a_small / mid / big slot buckets and their footprint clamp,
 ``entry_cap`` and the overflow flag, the PACKED8 fixed-point rows
 (binning.py:1-31, 57-76) and the ``_gather_rows_structured`` VJP (a
-workaround for TPU scatter cost; training is not ported yet).
+workaround for TPU scatter cost: the training backward,
+``ops/composite_vjp.py``, scatters per-entry gradients to splats with
+``index_add_``, and ``pack_params`` differentiates under autograd).
 
 The compositor reads one table of per-splat parameters, struct-of-arrays
 ``params[f, splat]`` (rows ``P_*`` below), through ``entry_splat``: each

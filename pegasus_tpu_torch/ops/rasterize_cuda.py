@@ -26,6 +26,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -40,19 +41,19 @@ MAX_OBJECTS_LIMIT = 32  # the kernel's largest register-resident K
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = _CSRC / "build"
-_KERNEL_SRC = _CSRC / "composite_tiles.cu"
+# no --use_fast_math: the backward must recompute the forward's alphas exactly
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-_LIB = None
+_LIBS: dict[str, ctypes.CDLL] = {}  # source file name -> loaded library
 
 
 def num_channels(max_objects: int) -> int:
     return 5 + 3 * max_objects + 2
 
 
-def _find_nvcc() -> str:
+def _find_nvcc(source: str) -> str:
     nvcc = shutil.which("nvcc")
     if nvcc is None:
         cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
@@ -60,47 +61,54 @@ def _find_nvcc() -> str:
             nvcc = str(cand)
     if nvcc is None:
         raise RuntimeError(
-            "nvcc not found (PATH or $CUDA_HOME/bin): cannot build "
-            f"{_KERNEL_SRC.name}"
+            f"nvcc not found (PATH or $CUDA_HOME/bin): cannot build {source}"
         )
     return nvcc
 
 
-def build_kernel() -> tuple[Path, str]:
-    """Compile ``composite_tiles.cu`` into a shared library, once per source
-    and flag set.  Returns (library path, compiler log; empty if cached).
-    Raises if nvcc is missing or the build fails."""
-    digest = hashlib.sha256(
-        _KERNEL_SRC.read_bytes() + " ".join(_NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    lib_path = _BUILD_DIR / f"libcomposite_tiles_{digest}.so"
+def build_kernel(source: str = "composite_tiles.cu") -> tuple[Path, str]:
+    """Compile ``csrc/<source>`` into a shared library in ``csrc/build/``,
+    once per content (the source, the shared headers and the flags).
+    Returns (library path, compiler log; empty if cached).  Raises if nvcc
+    is missing or the build fails."""
+    src = _CSRC / source
+    content = src.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(_CSRC.glob("*.cuh"))
+    )
+    digest = hashlib.sha256(content + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
+    lib_path = _BUILD_DIR / f"lib{src.stem}_{digest}.so"
     if lib_path.exists():
         return lib_path, ""
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
     proc = subprocess.run(
-        [_find_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_KERNEL_SRC)],
+        [_find_nvcc(source), *_NVCC_FLAGS, "-o", str(tmp), str(src)],
         capture_output=True, text=True,
     )
     if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed to build {_KERNEL_SRC.name}:\n{proc.stdout}{proc.stderr}"
-        )
+        raise RuntimeError(f"nvcc failed to build {source}:\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, lib_path)
     return lib_path, proc.stdout + proc.stderr
 
 
+def kernel_lib(source: str, entry: str, argtypes: list) -> ctypes.CDLL:
+    """The library built from ``csrc/<source>`` (built and loaded at first
+    use), with ``entry`` declared to take ``argtypes`` and return an int
+    CUDA error code."""
+    lib = _LIBS.get(source)
+    if lib is None:
+        lib = ctypes.CDLL(str(build_kernel(source)[0]))
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _LIBS[source] = lib
+    return lib
+
+
 def _kernel_lib():
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build_kernel()[0]))
-        p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        lib.composite_tiles_launch.argtypes = [
-            p, i64, p, p, p, p, i32, i32, i32, i32, i32, p,
-        ]
-        lib.composite_tiles_launch.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    return kernel_lib("composite_tiles.cu", "composite_tiles_launch",
+                      [p, i64, p, p, p, p, i32, i32, i32, i32, i32, p])
 
 
 def _check_bins(bins: TileBins, width: int, height: int, max_objects: int) -> None:
@@ -170,15 +178,68 @@ def composite_tiles(
 composite_tiles.launches = 0
 
 
+class TileChunk(NamedTuple):
+    """One step of the plain versions: entries [lo, lo + C) of every tile
+    still holding that many, and each (pixel, entry) pair's alpha."""
+
+    act: torch.Tensor  # [A] tiles with entries left
+    ok: torch.Tensor  # [A, C] the entry exists
+    idx: torch.Tensor  # [A, C] its index in entry_splat (0 where not ok)
+    p: torch.Tensor  # [PARAM_DIM, A, C] its splat's parameters
+    px: torch.Tensor  # [A, PX] pixel x (int64)
+    py: torch.Tensor  # [A, PX] pixel y
+    dx: torch.Tensor  # [A, PX, C] pixel - mean
+    dy: torch.Tensor
+    exppow: torch.Tensor  # exp(min(power, 0))
+    raw: torch.Tensor  # opacity * exppow, before the 0.99 clamp
+    alpha: torch.Tensor  # min(raw, 0.99)
+    keep: torch.Tensor  # the kernels' keep rule, and ok
+
+
+def tile_chunks(bins: TileBins, chunk: int):
+    """Walk every tile's segment ``chunk`` entries at a time, vectorised
+    over tiles, with the kernels' alpha expressions (composite_common.cuh:
+    the same products and sums, left to right)."""
+    dev = bins.params.device
+    ntx, n_tiles = bins.n_tiles_x, bins.n_tiles_x * bins.n_tiles_y
+    lin = torch.arange(B.TILE * B.TILE, device=dev)
+    tiles = torch.arange(n_tiles, device=dev)
+    pxs = (tiles % ntx)[:, None] * B.TILE + lin % B.TILE
+    pys = (tiles // ntx)[:, None] * B.TILE + lin // B.TILE
+    start = bins.tile_start.long()
+    count = bins.tile_count.long()
+    entry_splat = bins.entry_splat.long()
+    max_count = int(count.max()) if n_tiles else 0
+    for lo in range(0, max_count, chunk):
+        act = torch.nonzero(count > lo)[:, 0]
+        e = lo + torch.arange(chunk, device=dev)
+        ok = e[None, :] < count[act, None]  # [A, C]
+        idx = torch.where(ok, start[act, None] + e[None, :], 0)
+        p = bins.params[:, entry_splat[idx]]  # [F, A, C]
+        px, py = pxs[act], pys[act]
+        dx = px.to(torch.float32)[:, :, None] - p[B.P_MX][:, None, :]  # [A, PX, C]
+        dy = py.to(torch.float32)[:, :, None] - p[B.P_MY][:, None, :]
+        ca, cb, cc = (p[r][:, None, :] for r in (B.P_CA, B.P_CB, B.P_CC))
+        power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+        exppow = torch.exp(torch.clamp(power, max=0.0))
+        raw = p[B.P_OPAC][:, None, :] * exppow
+        alpha = torch.clamp(raw, max=0.99)
+        rad = p[B.P_RADIUS][:, None, :]
+        keep = (
+            (power <= 0.0) & (alpha >= 1.0 / 255.0)
+            & (torch.abs(dx) <= rad) & (torch.abs(dy) <= rad) & ok[:, None, :]
+        )
+        yield TileChunk(act, ok, idx, p, px, py, dx, dy, exppow, raw, alpha, keep)
+
+
 def composite_tiles_torch(
     bins: TileBins, width: int, height: int, max_objects: int, chunk: int = 64
 ) -> torch.Tensor:
     """Plain torch version of the kernel, same inputs and [H, W, F] output.
 
-    Vectorised over tiles: step c takes entries [c*chunk, (c+1)*chunk) of
-    every tile still holding that many, composites the chunk with an
-    exclusive cumulative product of (1 - alpha), and carries the
-    transmittances to the next step."""
+    Vectorised over tiles (``tile_chunks``): each step composites a chunk
+    of entries with an exclusive cumulative product of (1 - alpha) and
+    carries the transmittances to the next step."""
     _check_bins(bins, width, height, max_objects)
     dev = bins.params.device
     k = max_objects
@@ -186,43 +247,15 @@ def composite_tiles_torch(
     n_tiles = ntx * nty
     px_n = B.TILE * B.TILE
 
-    lin = torch.arange(px_n, device=dev)
-    tiles = torch.arange(n_tiles, device=dev)
-    pxs = ((tiles % ntx)[:, None] * B.TILE + lin % B.TILE).to(torch.float32)
-    pys = ((tiles // ntx)[:, None] * B.TILE + lin // B.TILE).to(torch.float32)
-
     t_full = torch.ones(n_tiles, px_n, device=dev)
     t_ne = torch.ones(n_tiles, px_n, device=dev)
     acc = torch.zeros(n_tiles, px_n, 5 + 2 * k, device=dev)
     amodal_log = torch.zeros(n_tiles, px_n, k, device=dev)
 
-    start = bins.tile_start.long()
-    count = bins.tile_count.long()
-    entry_splat = bins.entry_splat.long()
     kk = torch.arange(k, device=dev)
-    max_count = int(count.max()) if n_tiles else 0
-    for lo in range(0, max_count, chunk):
-        act = torch.nonzero(count > lo)[:, 0]  # tiles with entries left
-        e = lo + torch.arange(chunk, device=dev)
-        ok = e[None, :] < count[act, None]  # [A, C]
-        idx = torch.where(ok, start[act, None] + e[None, :], 0)
-        p = bins.params[:, entry_splat[idx]]  # [F, A, C]
-
-        dx = pxs[act][:, :, None] - p[B.P_MX][:, None, :]  # [A, PX, C]
-        dy = pys[act][:, :, None] - p[B.P_MY][:, None, :]
-        power = (
-            -0.5 * (p[B.P_CA][:, None, :] * dx * dx + p[B.P_CC][:, None, :] * dy * dy)
-            - p[B.P_CB][:, None, :] * dx * dy
-        )
-        alpha = torch.clamp(
-            p[B.P_OPAC][:, None, :] * torch.exp(torch.clamp(power, max=0.0)), max=0.99
-        )
-        rad = p[B.P_RADIUS][:, None, :]
-        keep = (
-            (power <= 0.0) & (alpha >= 1.0 / 255.0)
-            & (torch.abs(dx) <= rad) & (torch.abs(dy) <= rad) & ok[:, None, :]
-        )
-        a = torch.where(keep, alpha, torch.zeros_like(alpha))
+    for c in tile_chunks(bins, chunk):
+        act, p = c.act, c.p
+        a = torch.where(c.keep, c.alpha, torch.zeros_like(c.alpha))
 
         obj = p[B.P_OBJ].long()  # [A, C]
         onehot = (obj[..., None] == kk).to(torch.float32)  # [A, C, K]

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from pegasus_tpu_torch.assets.registry import Asset
+from pegasus_tpu_torch.device import resolve_device
 from pegasus_tpu_torch.gs.ply import load_gs_ply
 from pegasus_tpu_torch.io import colmap as colmap_io
 from pegasus_tpu_torch.io.bop_writer import BOPDatasetWriter
@@ -46,17 +47,6 @@ from pegasus_tpu_torch.scene.composition import (SceneTemplate, pose_scene,
                                                  poses_from_trajectory_step)
 from pegasus_tpu_torch.scene.trajectory import Trajectory
 from pegasus_tpu_torch.utils.colors import generate_colors
-
-
-def resolve_device(device) -> torch.device:
-    """torch.device for ``device``; a CUDA device must exist (no fallback)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device={device!r} but no CUDA device is available "
-            "(pass device='cpu' to run the plain torch path on the CPU)"
-        )
-    return dev
 
 
 class PEGASUS:

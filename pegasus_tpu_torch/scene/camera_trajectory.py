@@ -22,6 +22,7 @@ from typing import List, Literal
 import numpy as np
 
 from pegasus_tpu_torch.camera import Camera
+from pegasus_tpu_torch.device import DEFAULT_DEVICE
 from pegasus_tpu_torch.utils.pose import focal2fov, interpolate_pose, qvec2rotmat
 
 
@@ -36,7 +37,7 @@ def create_camera_trajectory(
     num_interpolation_steps: int = 24,
     mode: Literal["random", "sequence", "random+zoom"] = "random",
     rng: np.random.Generator | None = None,
-    device="cpu",
+    device=DEFAULT_DEVICE,
 ) -> List[Camera]:
     """cam_extr: {image_id: ColmapImage}; focal_x: fx from the GS model's
     cameras.json (the reference uses fx for BOTH axes,

@@ -18,6 +18,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from pegasus_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from pegasus_tpu_torch.gs.cloud import GaussianCloud, merge
 from pegasus_tpu_torch.utils import quaternion as quat
 from pegasus_tpu_torch.utils import sh as shlib
@@ -87,11 +88,12 @@ def pose_scene(
     return cloud.replace(xyz=new_xyz, rot=new_rot, f_rest=f_rest)
 
 
-def poses_from_trajectory_step(times_t, times_q_xyzw, step: int, device="cpu"):
+def poses_from_trajectory_step(times_t, times_q_xyzw, step: int, device=DEFAULT_DEVICE):
     """Dense per-body (R [B,3,3], t [B,3]) float32 at a timestep.
 
     times_t: [B, T, 3]; times_q_xyzw: [B, T, 4] (Bullet layout).  Body 0
     (environment) is forced to identity: the env cloud is never posed."""
+    device = resolve_device(device)
     t = torch.tensor(np.asarray(times_t)[:, step, :], dtype=torch.float32, device=device)
     q = torch.tensor(np.asarray(times_q_xyzw)[:, step, :], dtype=torch.float32, device=device)
     R = quat.quat_to_rotmat(quat.xyzw_to_wxyz(q))

@@ -5,7 +5,7 @@ COLMAP bin, OBJ, URDF).
 Port of ``pegasus_tpu/testing.py``: the same numpy draws in the same order,
 so a generator given the same ``numpy.random.Generator`` state yields the
 same splats as the reference's (SH DC terms are computed in float32, as the
-reference computes them).  Clouds are built on ``device``.
+reference computes them).  Clouds are built on ``device``, the card by default.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from pathlib import Path
 
 import numpy as np
 
+from pegasus_tpu_torch.device import DEFAULT_DEVICE
 from pegasus_tpu_torch.gs.cloud import GaussianCloud
 from pegasus_tpu_torch.utils import sh as shlib
 
@@ -37,7 +38,7 @@ def make_random_cloud(
     sh_degree: int = 3,
     rest_std: float = 0.05,
     object_id: int = 0,
-    device="cpu",
+    device=DEFAULT_DEVICE,
 ) -> GaussianCloud:
     """A blob of random splats around `center` (generic test object)."""
     xyz = rng.normal(size=(n, 3)) * extent / 3.0 + np.asarray(center)
@@ -60,7 +61,7 @@ def make_plane_cloud(
     z: float = 0.0,
     rgb=(0.4, 0.35, 0.3),
     sh_degree: int = 3,
-    device="cpu",
+    device=DEFAULT_DEVICE,
 ) -> GaussianCloud:
     """A flat ground-plane cloud (synthetic 'environment', object_id 0)."""
     xy = rng.uniform(-size / 2, size / 2, size=(n, 2))
@@ -94,7 +95,7 @@ def make_box_cloud(
     rgb=(0.8, 0.2, 0.2),
     object_id: int = 1,
     sh_degree: int = 3,
-    device="cpu",
+    device=DEFAULT_DEVICE,
 ) -> GaussianCloud:
     """Splats on the surface of a box (synthetic 'object')."""
     he = np.asarray(half_extents)
@@ -223,7 +224,8 @@ def build_synthetic_dataset(
 
     # environment: plane cloud + colmap hemisphere
     env_dir = root / "environment" / env_name
-    env_cloud = make_plane_cloud(rng, n=env_splats, size=2.0)
+    # host-side: these clouds only go to PLY files
+    env_cloud = make_plane_cloud(rng, n=env_splats, size=2.0, device="cpu")
     save_gs_ply(
         env_cloud,
         env_dir / "gs" / "point_cloud" / "iteration_30000" / "point_cloud.ply",
@@ -256,7 +258,7 @@ def build_synthetic_dataset(
         half = (0.04, 0.04, 0.06)
         cloud = make_box_cloud(
             rng, n=obj_splats, half_extents=half, center=(0, 0, 0), rgb=palette[i % 4],
-            object_id=0,
+            object_id=0, device="cpu",
         )
         save_gs_ply(
             cloud,

@@ -116,7 +116,7 @@ def test_camera_and_cloud_helpers_match_reference(rng):
         eye=(0.4, 0.3, 0.5), target=(0, 0, 0.05), up=(0, 0, 1),
         fovx=np.deg2rad(55), fovy=np.deg2rad(45), width=40, height=32,
     )
-    cam = camera_from_numpy(to_np(jcam))
+    cam = camera_from_numpy(to_np(jcam), device="cpu")
     np.testing.assert_allclose(cam.tan_half_fov(), [float(v) for v in jcam.tan_half_fov()], rtol=1e-6)
     np.testing.assert_allclose(cam.focal_px(), [float(v) for v in jcam.focal_px()], rtol=1e-6)
     for bop in (False, True):
@@ -124,13 +124,13 @@ def test_camera_and_cloud_helpers_match_reference(rng):
     np.testing.assert_allclose(cam.camera_center.numpy(), np.asarray(jcam.camera_center), atol=1e-6)
     qvec, tvec = Rotation.random(random_state=4).as_quat()[[3, 0, 1, 2]], rng.normal(size=3)
     jc = JCamera.from_colmap(qvec, tvec, 0.9, 0.7, 64, 48)
-    tc = Camera.from_colmap(qvec, tvec, 0.9, 0.7, 64, 48)
+    tc = Camera.from_colmap(qvec, tvec, 0.9, 0.7, 64, 48, device="cpu")
     np.testing.assert_allclose(tc.R_w2c.numpy(), np.asarray(jc.R_w2c), atol=1e-7)
     np.testing.assert_allclose(tc.t_w2c.numpy(), np.asarray(jc.t_w2c), atol=1e-7)
     assert (tc.fovx, tc.fovy, tc.width, tc.height) == (float(jc.fovx), float(jc.fovy), 64, 48)
 
     jcloud = j_random(rng, n=50)
-    cloud = cloud_from_numpy(to_np(jcloud))
+    cloud = cloud_from_numpy(to_np(jcloud), device="cpu")
     assert cloud.num_splats == jcloud.num_splats and cloud.sh_degree == jcloud.sh_degree
     for name in ("get_scaling", "get_opacity", "get_rotation", "get_features", "centroid"):
         np.testing.assert_allclose(
@@ -143,10 +143,10 @@ def test_camera_and_cloud_helpers_match_reference(rng):
 
 
 def test_ply_round_trip(tmp_path, rng):
-    cloud = make_random_cloud(rng, n=40)
+    cloud = make_random_cloud(rng, n=40, device="cpu")
     path = tmp_path / "pc.ply"
     save_gs_ply(cloud, path)
-    back = load_gs_ply(path)
+    back = load_gs_ply(path, device="cpu")
     for f in ("xyz", "f_dc", "f_rest", "opacity", "scale", "rot"):
         np.testing.assert_array_equal(getattr(back, f).numpy(), getattr(cloud, f).numpy(), err_msg=f)
 
@@ -167,7 +167,8 @@ def _scene_and_camera(rng, width=48, height=40):
 def test_project_gaussians_matches_reference(rng):
     jscene, jcam = _scene_and_camera(rng)
     ref = j_project(jscene, jcam)
-    got = project_gaussians(cloud_from_numpy(to_np(jscene)), camera_from_numpy(to_np(jcam)))
+    got = project_gaussians(cloud_from_numpy(to_np(jscene), device="cpu"),
+                            camera_from_numpy(to_np(jcam), device="cpu"))
     for f in ref._fields:
         a, b = np.asarray(getattr(ref, f)), getattr(got, f).numpy()
         if a.dtype == bool or a.dtype.kind == "i":
@@ -181,14 +182,15 @@ def test_pose_scene_matches_reference(rng):
     objs = [j_box(rng, n=60, object_id=0), j_random(rng, n=40)]
     jt = JTemplate.build(env, objs, pad_to=256)
     tt = SceneTemplate.build(
-        cloud_from_numpy(to_np(env)), [cloud_from_numpy(to_np(o)) for o in objs], pad_to=256
+        cloud_from_numpy(to_np(env), device="cpu"),
+        [cloud_from_numpy(to_np(o), device="cpu") for o in objs], pad_to=256,
     )
     np.testing.assert_allclose(tt.pivots.numpy(), np.asarray(jt.pivots), atol=1e-6)
 
     times_t = rng.normal(size=(3, 5, 3))
     times_q = rng.normal(size=(3, 5, 4))
     jR, jt_ = j_poses_at(jnp.asarray(times_t, jnp.float32), jnp.asarray(times_q, jnp.float32), 2)
-    R, tr = poses_from_trajectory_step(times_t, times_q, 2)
+    R, tr = poses_from_trajectory_step(times_t, times_q, 2, device="cpu")
     np.testing.assert_allclose(R.numpy(), np.asarray(jR), atol=1e-6)
     np.testing.assert_allclose(tr.numpy(), np.asarray(jt_), atol=1e-6)
 
@@ -201,17 +203,20 @@ def test_pose_scene_matches_reference(rng):
 
 
 def test_port_imports_no_jax():
-    """The port and every submodule import without jax, flax or pegasus_tpu."""
+    """The port and every submodule import without jax, flax or pegasus_tpu,
+    and importing them flips no global TF32 flag."""
     code = (
+        "import torch\n"
+        "flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)\n"
         "import importlib, pkgutil, sys\n"
         "import pegasus_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, 'pegasus_tpu_torch.')]\n"
         "[importlib.import_module(n) for n in names]\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'flax', 'pegasus_tpu'))\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'flax', 'pegasus_tpu', 'optax', 'orbax', 'imageio'))\n"
         "assert not bad, bad\n"
         "assert len(names) > 20, names\n"
-        "import torch\n"
-        "assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32\n"
+        "assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == flags\n"
+        "assert not torch.backends.cuda.matmul.allow_tf32\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr

@@ -1,13 +1,18 @@
-"""The CUDA tile compositor against its plain torch version, on the card.
+"""The CUDA tile compositor and its backward against their plain torch
+versions, on the card.
 
-Every test here needs a CUDA device and ``nvcc`` (the kernel is built at
+Every test here needs a CUDA device and ``nvcc`` (the kernels are built at
 first use); without a card they skip.  Run them on a GPU machine with
 
     python -m pytest -m gpu tests/test_torch_kernel.py
 
-Tolerance: both versions composite the same entries in the same order in
-float32 and differ only in rounding (sequential products against a
-cumulative product), so every channel must agree to > 60 dB.
+Tolerance: both forward versions composite the same entries in the same
+order in float32 and differ only in rounding (sequential products against a
+cumulative product), so every channel must agree to > 60 dB.  The backward
+versions recompute the same alphas and differ in rounding and in the order
+of the per-entry sums (warp shuffles and shared-memory float atomics, whose
+order changes from run to run), so each gradient row must reach a cosine of
+0.99999 and a max |difference| of 1e-4 x the row's max |gradient|.
 """
 
 import numpy as np
@@ -17,6 +22,9 @@ import torch
 from pegasus_tpu_torch.camera import Camera
 from pegasus_tpu_torch.gs.cloud import merge
 from pegasus_tpu_torch.ops.binning import bin_splats
+from pegasus_tpu_torch.ops.composite_vjp import (N_GRAD, composite_tiles_backward,
+                                                 composite_tiles_backward_torch,
+                                                 composite_tiles_diff)
 from pegasus_tpu_torch.ops.projection import project_gaussians
 from pegasus_tpu_torch.ops.rasterize_cuda import (composite_tiles,
                                                    composite_tiles_torch,
@@ -57,7 +65,8 @@ def scene(device, n_objects=6, n_plane=20_000, n_box=2_000, seed=7):
                        object_id=i + 1, rgb=((0.2 + 0.1 * i) % 1.0, 0.5, 0.4), device=device)
         for i in range(n_objects)
     ]
-    return merge([make_plane_cloud(rng, n=n_plane, size=2.0, device=device)] + objs)
+    plane = [make_plane_cloud(rng, n=n_plane, size=2.0, device=device)] if n_plane else []
+    return merge(plane + objs)
 
 
 def camera(view, device, width=640, height=480):
@@ -111,3 +120,76 @@ def test_kernel_counts_launches_and_checks_inputs(cuda):
     with pytest.raises(ValueError, match="on cpu"):
         composite_tiles(bins._replace(entry_splat=bins.entry_splat.cpu()), 64, 48, 7)
     assert composite_tiles.launches == before + 1
+
+
+def assert_rows_agree(got, want):
+    """Per gradient row: cosine >= 0.99999, max |diff| <= 1e-4 max |want|."""
+    for r in range(got.shape[0]):
+        a, b = got[r].double(), want[r].double()
+        scale = float(b.abs().max())
+        if scale == 0:
+            assert float(a.abs().max()) == 0, r
+            continue
+        cos = float(a @ b / (a.norm() * b.norm()))
+        err = float((a - b).abs().max())
+        assert cos >= 0.99999 and err <= 1e-4 * scale, (r, cos, err, scale)
+
+
+@pytest.mark.parametrize("view,width,height,n_objects,n_plane", [
+    ("orbit", 200, 152, 0, 20_000),   # K = 1, the trainer's K
+    ("orbit", 70, 50, 6, 20_000),     # K = 7, ragged edge tiles
+    ("grazing", 160, 120, 12, 8_000),  # K = 13: seg/vis/amodal terms at K <= 16
+    ("orbit", 120, 90, 25, 0),        # K = 26, objects only: empty tiles
+])
+def test_backward_kernel_matches_plain(cuda, view, width, height, n_objects, n_plane):
+    cam = camera(view, cuda, width, height)
+    k = n_objects + 1
+    bins = bin_splats(project_gaussians(scene(cuda, n_objects, n_plane=n_plane), cam), width, height)
+    if n_plane == 0:
+        assert (bins.tile_count == 0).any()
+    g = torch.randn((height, width, 5 + 3 * k + 2), generator=torch.Generator().manual_seed(k))
+    g = g.to(cuda)
+    got = composite_tiles_backward(bins, g, width, height, k)
+    want = composite_tiles_backward_torch(bins, g, width, height, k)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (N_GRAD, bins.entry_splat.numel())
+    assert torch.isfinite(got).all()
+    assert_rows_agree(got, want)
+
+
+def test_autograd_function_matches_plain_autograd(cuda):
+    """CompositeTiles' gradient (both kernels) against autograd through the
+    plain forward, on a tiny scene, for a loss over every channel."""
+    cam = camera("orbit", cuda, 48, 40)
+    k = 3
+    bins = bin_splats(project_gaussians(scene(cuda, 2, n_plane=1_500, n_box=300), cam), 48, 40)
+    w = torch.randn((40, 48, 5 + 3 * k + 2), generator=torch.Generator().manual_seed(0)).to(cuda)
+    grads = []
+    for fn in (lambda b: composite_tiles_diff(b, 48, 40, k),
+               lambda b: composite_tiles_torch(b, 48, 40, k)):
+        params = bins.params.clone().requires_grad_(True)
+        (fn(bins._replace(params=params)) * w).sum().backward()
+        grads.append(params.grad)
+    assert torch.all(grads[0][10:] == 0)
+    assert_rows_agree(grads[0][:N_GRAD], grads[1][:N_GRAD])
+
+
+def test_backward_counts_launches_and_checks_inputs(cuda):
+    cam = camera("orbit", cuda, 64, 48)
+    bins = bin_splats(project_gaussians(scene(cuda, n_plane=2_000, n_box=200), cam), 64, 48)
+    g = torch.ones((48, 64, 5 + 3 * 7 + 2), device=cuda)
+    before = composite_tiles_backward.launches
+    composite_tiles_backward(bins, g, 64, 48, 7)
+    composite_tiles_backward_torch(bins, g, 64, 48, 7)  # the plain version does not count
+    assert composite_tiles_backward.launches == before + 1
+    with pytest.raises(ValueError, match="max_objects"):
+        composite_tiles_backward(bins, torch.ones((48, 64, 5 + 3 * 33 + 2), device=cuda), 64, 48, 33)
+    with pytest.raises(ValueError, match="grad_out on cpu"):
+        composite_tiles_backward(bins, g.cpu(), 64, 48, 7)
+    with pytest.raises(ValueError, match="on cpu"):
+        composite_tiles_backward(bins._replace(tile_start=bins.tile_start.cpu()), g, 64, 48, 7)
+    # a strided cotangent (a slice of a wider tensor) is made contiguous
+    wide = torch.ones((48, 64, 2 * g.shape[-1]), device=cuda)[..., : g.shape[-1]]
+    torch.testing.assert_close(composite_tiles_backward(bins, wide, 64, 48, 7),
+                               composite_tiles_backward(bins, g, 64, 48, 7), rtol=1e-5, atol=1e-6)
+    assert composite_tiles_backward.launches == before + 3

@@ -59,7 +59,7 @@ def scene():
         j_box(rng, n=200, center=(0.0, 0.0, 0.08), object_id=1),
         j_box(rng, n=200, center=(0.12, -0.1, 0.06), object_id=2),
     ])
-    return jscene, cloud_from_numpy({f: np.asarray(getattr(jscene, f)) for f in CLOUD_FIELDS})
+    return jscene, cloud_from_numpy({f: np.asarray(getattr(jscene, f)) for f in CLOUD_FIELDS}, device="cpu")
 
 
 def camera(view, width=56, height=44):
@@ -72,7 +72,7 @@ def camera(view, width=56, height=44):
                            fovy=np.deg2rad(45), width=width, height=height)
     d = {f: np.asarray(getattr(jcam, f)) for f in CAMERA_FIELDS}
     d["width"], d["height"] = width, height
-    return jcam, camera_from_numpy(d)
+    return jcam, camera_from_numpy(d, device="cpu")
 
 
 @pytest.mark.parametrize("view", ["objects", "env"])
