@@ -14,7 +14,10 @@ Phases, each of which fails the run (nonzero exit) on any miss:
    10k, rng 7) and the 1M plane scene (820k plane + 6 boxes of 30k, rng 11),
    each at an orbit and a grazing camera, ``composite_tiles`` against
    ``composite_tiles_torch`` on the same bins: >= 60 dB per channel and
-   max |diff| <= 1e-3 x max(1, channel peak); both timed with CUDA events;
+   max |diff| <= 1e-3 x max(1, channel peak); both timed with CUDA events.
+   Each shape prints its segment histogram (max, p99 and mean entries per
+   tile, and the work items at C = 128, 256, 512 and 1024) and each orbit
+   view the forward kernel's time at those four C;
 4. full render vs golden: ``rasterize`` against the torch golden
    compositor on the 210k scene, >= 40 dB per channel;
 5. generation main path: the ``PEGASUS`` lifecycle replaying the committed
@@ -31,11 +34,17 @@ Phases, each of which fails the run (nonzero exit) on any miss:
    K = 1) and at the 210k bench scene's orbit view (K = 7: the seg, vis
    and amodal terms): the forward kernel as in phase 3, and
    ``composite_tiles_backward`` against ``composite_tiles_backward_torch``
-   on the same bins and a seeded cotangent: per gradient row, cosine >=
-   0.99999 and max |diff| <= 1e-4 x max |gradient| (float atomics reorder
-   the sums from run to run).  Both kernels and both plain versions are
-   timed with CUDA events, and each kernel's bound is computed from the
-   bins;
+   on the same bins and a seeded cotangent, both fed the forward kernel's
+   output and per-item partials: per gradient row, cosine >= 0.99999 and
+   max |diff| <= 1e-4 x max |gradient| (the two versions sum in another
+   order).  Both kernels and both plain versions are timed with
+   CUDA events, both kernels also at C = 128, 256, 512 and 1024, each shape
+   prints its segment histogram, and each kernel's bound is computed from
+   the bins.  Then the long-segment stress case at K = 1 and K = 7: a
+   pile-up of splats on a 128x64 image whose tiles hold 10 C + 37, C - 1,
+   C and C + 1 entries (most tiles none): the forward kernel against its
+   plain version, K3 against its plain version, and two launches of each
+   kernel bitwise equal;
 8. training main path: ``train_gaussian_splatting_wrapper`` on a synthetic
    COLMAP scene (28 views at 512x512 of the 150k-splat box, ground truth
    rendered by ``rasterize``, 40,000 seed points, capacity 200,000), 600
@@ -97,6 +106,7 @@ OPS_FWD_KEPT = 19
 OPS_BWD_KEPT = 53
 OPS_BWD_KEPT_OBJ = 10
 FWD_ABS_GATE = 1e-3  # forward kernel vs plain: max |diff| <= this x max(1, channel peak)
+CHUNK_SWEEP = (128, 256, 512, 1024)  # entries per work item timed beside CHUNK_ENTRIES
 
 def require(ok, message) -> None:
     """Fail the run (explicitly, so ``python -O`` cannot drop the check)."""
@@ -205,6 +215,42 @@ def time_pair(kernel, plain, n_kernel: int = 20, n_plain: int = 2):
     return min(k1, k2), min(p1, p2), [p1, k1, k2, p2]
 
 
+def segment_histogram(label, bins) -> dict:
+    """Entries per tile (max, p99, mean) and the work items the kernels
+    run at each C of CHUNK_SWEEP; printed."""
+    import torch
+
+    from pegasus_tpu_torch.ops.rasterize_cuda import tile_items
+
+    count = bins.tile_count.double()
+    hist = {"tiles": count.numel(), "max": int(count.max()),
+            "p99": float(torch.quantile(count, 0.99)), "mean": float(count.mean()),
+            "items": {c: int(tile_items(bins, c)[0].sum()) for c in CHUNK_SWEEP}}
+    print(f"segments {label}: {json.dumps(hist)}", flush=True)
+    return hist
+
+
+def chunk_sweep(label, bins, width, height, k, grad=None) -> dict:
+    """The forward kernel (and K3, given a cotangent) at each C of
+    CHUNK_SWEEP, in the order of CHUNK_SWEEP and back, the better of two."""
+    from pegasus_tpu_torch.ops.composite_vjp import composite_tiles_backward
+    from pegasus_tpu_torch.ops.rasterize_cuda import composite_tiles
+
+    runs = {c: [] for c in CHUNK_SWEEP}
+    for c in CHUNK_SWEEP + CHUNK_SWEEP[::-1]:
+        fwd = cuda_ms(lambda: composite_tiles(bins, width, height, k, c), 20)
+        bwd = None
+        if grad is not None:
+            out, partials = composite_tiles(bins, width, height, k, c, return_partials=True)
+            bwd = cuda_ms(lambda: composite_tiles_backward(bins, grad, out, partials, width,
+                                                           height, k, c), 20)
+        runs[c].append((fwd, bwd))
+    sweep = {c: {"fwd_ms": min(f for f, _ in r),
+                 "bwd_ms": None if grad is None else min(b for _, b in r)} for c, r in runs.items()}
+    print(f"chunk sweep {label}: {json.dumps(sweep)}", flush=True)
+    return sweep
+
+
 def kernel_vs_plain(scenes, cams, max_objects):
     """Phase 3: composite_tiles against composite_tiles_torch on the same bins."""
     from pegasus_tpu_torch.ops.binning import bin_splats
@@ -216,6 +262,7 @@ def kernel_vs_plain(scenes, cams, max_objects):
         for cname, cam in cams.items():
             proj = project_gaussians(scene, cam)
             bins = bin_splats(proj, WIDTH, HEIGHT)
+            hist = segment_histogram(f"{sname} {cname}", bins)
             err = forward_vs_plain(f"{sname} {cname}", bins, WIDTH, HEIGHT, max_objects)
             max_abs_err = max(max_abs_err, err)
             if cname == "orbit":
@@ -223,8 +270,10 @@ def kernel_vs_plain(scenes, cams, max_objects):
                     lambda: composite_tiles(bins, WIDTH, HEIGHT, max_objects),
                     lambda: composite_tiles_torch(bins, WIDTH, HEIGHT, max_objects))
                 bound_ms, bound_by = compositor_bounds(bins, WIDTH, HEIGHT, max_objects)["fwd"]
+                sweep = chunk_sweep(f"{sname} orbit", bins, WIDTH, HEIGHT, max_objects)
                 timings[sname] = {"ms": ms, "plain_ms": plain_ms, "runs_ms": runs,
-                                  "bound_ms": bound_ms, "bound_by": bound_by}
+                                  "bound_ms": bound_ms, "bound_by": bound_by,
+                                  "hist": hist, "sweep": sweep}
                 print(f"composite time {sname} orbit: kernel {runs[1]:.4f}/{runs[2]:.4f} ms, "
                       f"plain {runs[0]:.4f}/{runs[3]:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})",
                       flush=True)
@@ -503,21 +552,18 @@ def train_camera(device):
                           width=TRAIN_SIZE, height=TRAIN_SIZE, device=device)
 
 
-def backward_vs_plain(label, bins, width, height, k, card):
-    """Phase 7 at one shape: the forward kernel and K3 against their plain
-    versions on the same bins, each timed (plain, kernel, kernel, plain)."""
+def backward_rows_vs_plain(label, bins, grad, out, partials, width, height, k, chunk_entries):
+    """K3 against its plain version, both fed the forward kernel's output
+    and partials: per gradient row, cosine >= 0.99999 and max |diff| <=
+    1e-4 x max |gradient|.  Returns [(cosine, max |diff|, max |g|)]."""
     import torch
 
     from pegasus_tpu_torch.ops.composite_vjp import (composite_tiles_backward,
                                                      composite_tiles_backward_torch)
-    from pegasus_tpu_torch.ops.rasterize_cuda import (composite_tiles, composite_tiles_torch,
-                                                       num_channels)
 
-    fwd_err = forward_vs_plain(label, bins, width, height, k)
-    dev = bins.params.device
-    g = torch.randn((height, width, num_channels(k)), generator=torch.Generator().manual_seed(k)).to(dev)
-    got = composite_tiles_backward(bins, g, width, height, k)
-    want = composite_tiles_backward_torch(bins, g, width, height, k)
+    got = composite_tiles_backward(bins, grad, out, partials, width, height, k, chunk_entries)
+    want = composite_tiles_backward_torch(bins, grad, out, partials, width, height, k,
+                                          chunk_entries=chunk_entries)
     torch.cuda.synchronize()
     require(torch.isfinite(got).all(), f"{label}: non-finite backward kernel output")
     rows = []
@@ -529,17 +575,39 @@ def backward_vs_plain(label, bins, width, height, k, card):
         rows.append((cos, err, scale))
         require(cos >= 0.99999 and err <= 1e-4 * scale,
                 f"{label} row {r}: cosine {cos} max|diff| {err} vs max|g| {scale}")
+    return rows
+
+
+def backward_vs_plain(label, bins, width, height, k, card):
+    """Phase 7 at one shape: the forward kernel and K3 against their plain
+    versions on the same bins, each timed (plain, kernel, kernel, plain)."""
+    import torch
+
+    from pegasus_tpu_torch.ops.composite_vjp import (composite_tiles_backward,
+                                                     composite_tiles_backward_torch)
+    from pegasus_tpu_torch.ops.rasterize_cuda import (CHUNK_ENTRIES, composite_tiles,
+                                                       composite_tiles_torch, num_channels)
+
+    hist = segment_histogram(label, bins)
+    fwd_err = forward_vs_plain(label, bins, width, height, k)
+    dev = bins.params.device
+    g = torch.randn((height, width, num_channels(k)), generator=torch.Generator().manual_seed(k)).to(dev)
+    fwd_out, partials = composite_tiles(bins, width, height, k, return_partials=True)
+    rows = backward_rows_vs_plain(label, bins, g, fwd_out, partials, width, height, k, CHUNK_ENTRIES)
     f_ms, f_plain_ms, f_runs = time_pair(lambda: composite_tiles(bins, width, height, k),
                                          lambda: composite_tiles_torch(bins, width, height, k))
     ms, plain_ms, runs = time_pair(
-        lambda: composite_tiles_backward(bins, g, width, height, k),
-        lambda: composite_tiles_backward_torch(bins, g, width, height, k), n_plain=1)
+        lambda: composite_tiles_backward(bins, g, fwd_out, partials, width, height, k),
+        lambda: composite_tiles_backward_torch(bins, g, fwd_out, partials, width, height, k),
+        n_plain=1)
     bounds = compositor_bounds(bins, width, height, k)
+    sweep = chunk_sweep(label, bins, width, height, k, g)
     out = {"entries": bins.entry_splat.numel(), "max_abs_err": max(e for _, e, _ in rows),
            "min_cosine": min(c for c, _, _ in rows),
            "max_rel_err": max(e / s for _, e, s in rows if s > 0),
            "ms": ms, "plain_ms": plain_ms, "runs_ms": runs,
-           "fwd_ms": f_ms, "fwd_plain_ms": f_plain_ms, "fwd_max_abs_err": fwd_err, **bounds}
+           "fwd_ms": f_ms, "fwd_plain_ms": f_plain_ms, "fwd_max_abs_err": fwd_err,
+           "hist": hist, "sweep": sweep, **bounds}
     print(f"backward kernel vs plain {label}: entries={out['entries']} pairs={bounds['pairs']} "
           f"kept={bounds['kept']} kept_obj={bounds['kept_obj']} min_cosine={out['min_cosine']:.8f} "
           f"max_rel_err={out['max_rel_err']:.3e} max_abs_err={out['max_abs_err']:.3e}; "
@@ -548,6 +616,45 @@ def backward_vs_plain(label, bins, width, height, k, card):
           f"bound fwd {bounds['fwd'][0]:.4f} ms ({bounds['fwd'][1]}), "
           f"bwd {bounds['bwd'][0]:.4f} ms ({bounds['bwd'][1]}) card={card}", flush=True)
     return out
+
+
+def long_segment_stress(device, k, card):
+    """Phase 7's stress case: splats piled onto a few tiles of a 128x64
+    image (tile 0 holds 10 C + 37 entries, tiles 1-3 C - 1, C and C + 1,
+    tile 12 a short segment, the rest none).  Both kernels against their
+    plain versions, and two launches of each kernel bitwise equal.  Returns the
+    largest forward and backward |diff|."""
+    import numpy as np
+    import torch
+
+    from pegasus_tpu_torch.ops.binning import bin_splats
+    from pegasus_tpu_torch.ops.composite_vjp import composite_tiles_backward
+    from pegasus_tpu_torch.ops.rasterize_cuda import CHUNK_ENTRIES, composite_tiles
+    from pegasus_tpu_torch.testing import make_tile_pileup
+
+    c, w, h = CHUNK_ENTRIES, 128, 64
+    label = f"stress K={k}"
+    proj = make_tile_pileup(np.random.default_rng(5), {0: 10 * c + 37, 1: c - 1, 2: c, 3: c + 1, 12: 40},
+                            w, h, k, device=device)
+    bins = bin_splats(proj, w, h)
+    counts = bins.tile_count.tolist()
+    require(counts[:4] == [10 * c + 37, c - 1, c, c + 1] and 0 in counts, f"{label}: counts {counts}")
+    hist = segment_histogram(label, bins)
+    fwd_err = forward_vs_plain(label, bins, w, h, k)
+    out, partials = composite_tiles(bins, w, h, k, return_partials=True)
+    again = composite_tiles(bins, w, h, k)
+    torch.cuda.synchronize()
+    require(torch.equal(out, again), f"{label}: two forward launches differ")
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(k)).to(device)
+    rows = backward_rows_vs_plain(label, bins, g, out, partials, w, h, k, c)
+    grads = [composite_tiles_backward(bins, g, out, partials, w, h, k, c) for _ in range(2)]
+    torch.cuda.synchronize()
+    require(torch.equal(*grads), f"{label}: two K3 launches differ")
+    bwd_err = max(e for _, e, _ in rows)
+    print(f"long-segment stress K={k}: tiles {counts[:4]} + one of 40, items {hist['items'][c]}, "
+          f"both kernels bitwise repeatable, forward max_abs_err {fwd_err:.3e}, K3 min_cosine "
+          f"{min(cs for cs, _, _ in rows):.8f} max_abs_err {bwd_err:.3e} card={card}", flush=True)
+    return fwd_err, bwd_err
 
 
 def training_scene(root: Path, device):
@@ -775,6 +882,7 @@ def main() -> int:
     from pegasus_tpu_torch.camera import Camera
     from pegasus_tpu_torch.io.png import _load_native
     from pegasus_tpu_torch.ops import rasterize_cuda
+    from pegasus_tpu_torch.ops.rasterize_cuda import CHUNK_ENTRIES
     from pegasus_tpu_torch.testing import SMOKE_OBJECTS, build_synthetic_dataset
 
     dev = torch.device("cuda:0")
@@ -840,6 +948,7 @@ def main() -> int:
         bins = bin_splats(project_gaussians(scene_210k, cams["orbit"]), WIDTH, HEIGHT)
         bwd_210k = backward_vs_plain("210k orbit 640x480 K=7", bins, WIDTH, HEIGHT, max_objects, card)
         del bins, scene_210k
+        stress = [long_segment_stress(dev, k, card) for k in (1, max_objects)]
         torch.cuda.empty_cache()
 
         # -- phase 8: the training main path ----------------------------------------------------
@@ -853,7 +962,12 @@ def main() -> int:
         "launches": gen_launches + train_launches["forward"],
         "launches_generation": gen_launches,
         "launches_training": train_launches["forward"],
-        "max_abs_err": max(max_abs_err, bwd_train["fwd_max_abs_err"], bwd_210k["fwd_max_abs_err"]),
+        "max_abs_err": max(max_abs_err, bwd_train["fwd_max_abs_err"], bwd_210k["fwd_max_abs_err"],
+                           *(f for f, _ in stress)),
+        "chunk_entries": CHUNK_ENTRIES,
+        "items": timings["210k"]["hist"]["items"][CHUNK_ENTRIES],
+        "items_1m": timings["1M"]["hist"]["items"][CHUNK_ENTRIES],
+        "items_train": bwd_train["hist"]["items"][CHUNK_ENTRIES],
         "ms": timings["210k"]["ms"],
         "plain_ms": timings["210k"]["plain_ms"],
         "bound_ms": timings["210k"]["bound_ms"],
@@ -872,6 +986,10 @@ def main() -> int:
         "replaces": "pegasus_tpu/ops/pallas_vjp.py:105",
         "launches": train_launches["backward"],
         "max_abs_err": max(bwd_train["max_abs_err"], bwd_210k["max_abs_err"]),
+        "max_abs_err_stress": max(b for _, b in stress),
+        "chunk_entries": CHUNK_ENTRIES,
+        "items": bwd_train["hist"]["items"][CHUNK_ENTRIES],
+        "items_210k": bwd_210k["hist"]["items"][CHUNK_ENTRIES],
         "max_rel_err": max(bwd_train["max_rel_err"], bwd_210k["max_rel_err"]),
         "min_cosine": min(bwd_train["min_cosine"], bwd_210k["min_cosine"]),
         "ms": bwd_train["ms"],

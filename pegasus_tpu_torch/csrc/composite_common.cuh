@@ -51,4 +51,73 @@ __device__ __forceinline__ bool entry_alpha(float fx, float fy, float mx,
          (fabsf(dy) <= rad);
 }
 
+// ---- work items: each tile's segment cut into runs of at most `chunk` ----
+//
+// Tile t holds max(1, ceil(count_t / chunk)) items, numbered tile by tile
+// in order (item i of the frame is item c of its tile, i = first_t + c).
+// Both kernels launch one block per item over a grid of ceil(M / chunk) +
+// n_tiles blocks, the bound ops/rasterize_cuda.py::max_items computes
+// without reading the counts on the host; blocks past the last item exit.
+// The table is not stored: every block derives its own (tile, first item)
+// from tile_count, a scan of n_tiles ints from L2.
+
+constexpr unsigned FULL_MASK = 0xffffffffu;
+
+__device__ __forceinline__ int items_of(int count, int chunk) {
+  return count > chunk ? (count + chunk - 1) / chunk : 1;
+}
+
+// The tile that holds frame item `item` and the index of that tile's first
+// item, for the whole block: (-1, 0) past the last item.  Thread j sums
+// the items of tiles [j * per, (j + 1) * per), a warp scan and the warp
+// totals give its exclusive prefix, and the one thread whose range holds
+// `item` walks its tiles.  `s_warp` holds PX / 32 + 2 ints.
+__device__ __forceinline__ void locate_item(const int* __restrict__ tile_count,
+                                            int n_tiles, int chunk, int item,
+                                            int* s_warp, int& tile,
+                                            int& first) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int per = (n_tiles + PX - 1) / PX;
+  const int t0 = min(tid * per, n_tiles), t1 = min(t0 + per, n_tiles);
+  int sum = 0;
+  for (int t = t0; t < t1; ++t) sum += items_of(tile_count[t], chunk);
+  int incl = sum;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int up = __shfl_up_sync(FULL_MASK, incl, o);
+    if (lane >= o) incl += up;
+  }
+  if (lane == 31) s_warp[warp] = incl;
+  if (tid == 0) {
+    s_warp[PX / 32] = -1;
+    s_warp[PX / 32 + 1] = 0;
+  }
+  __syncthreads();
+  for (int w = 0; w < warp; ++w) incl += s_warp[w];
+  int f = incl - sum;
+  if (item >= f && item < incl) {
+    for (int t = t0; t < t1; ++t) {
+      const int n = items_of(tile_count[t], chunk);
+      if (item < f + n) {
+        s_warp[PX / 32] = t;
+        s_warp[PX / 32 + 1] = f;
+        break;
+      }
+      f += n;
+    }
+  }
+  __syncthreads();
+  tile = s_warp[PX / 32];
+  first = s_warp[PX / 32 + 1];
+}
+
+// Per-item partials: item i's composite of its own entries from T = 1, in
+// the output's channel order (A = 0:5+K rgb, depth, alpha, seg; V =
+// 5+K:5+2K vis; L = 5+2K:5+3K amodal log; then T_full, T_ne), stored
+// channel-major as partials[i][f][pixel of the tile], f < 5 + 3K + 2.
+// Written only for tiles of more than one item.  Items of a tile combine in
+// order with the 'over' operator:
+//   out_A += T_acc A_c,  vis += T_ne_acc V_c,  amodal += L_c,
+//   T_acc *= T_c,  T_ne_acc *= T_ne_c.
+
 }  // namespace composite

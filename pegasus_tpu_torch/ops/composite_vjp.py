@@ -21,14 +21,16 @@ Backward math (pallas_vjp.py:15-35), per pixel and depth-ordered entry e of
 its tile, with w_e = a_e T_excl(e) and t_out = prod_e (1 - a_e):
 
     dL/da_e = T_excl(e) (feat_e . gA) - (S_>e + t_out g_t) / (1 - a_e)
-    S_>e    = sum_{e' > e} w_e' (feat_e' . gA)
+    S_>e    = S - sum_{e' <= e} w_e' (feat_e' . gA),   S = out_A . gA
 
 plus the same terms for the chain with environment alphas zeroed (vis
 channels, object entries only) and -gC[obj] / (1 - a_e) for the amodal
 log-transmittance, gated by keep & unclamped (no gradient through the 0.99
-clamp), then chained to mean, conic and opacity.  Two forward-order passes:
-pass 1 gives the totals S and the final transmittances, pass 2 forms
-S_>e = S - prefix.
+clamp), then chained to mean, conic and opacity.  One forward-order walk:
+the totals S, S_ne and both final transmittances are read off the forward's
+output, which ``CompositeTiles`` saves, and each work item of the forward
+(``rasterize_cuda.CHUNK_ENTRIES`` entries) starts from the state that the
+forward's per-item partials of the items before it give.
 
 ``abs_grad_sink`` ([N, 2] zeros that require grad) receives the per-splat
 sum of |per-entry mean2d gradient| (AbsGS, the JAX package's
@@ -48,9 +50,10 @@ from pegasus_tpu_torch.gs.cloud import GaussianCloud
 from pegasus_tpu_torch.ops import binning as B
 from pegasus_tpu_torch.ops.binning import TileBins, bin_splats
 from pegasus_tpu_torch.ops.projection import ProjectedGaussians, project_gaussians
-from pegasus_tpu_torch.ops.rasterize_cuda import (_check_bins, composite_tiles,
+from pegasus_tpu_torch.ops.rasterize_cuda import (CHUNK_ENTRIES, _check_bins, composite_tiles,
                                                    kernel_lib, num_channels,
-                                                   outputs_from_channels, tile_chunks)
+                                                   outputs_from_channels, partials_shape,
+                                                   tile_chunks, tile_items)
 from pegasus_tpu_torch.ops.rasterize_ref import RenderOutputs
 
 N_GRAD = 10  # gradient rows P_MX .. P_DEPTH
@@ -59,36 +62,47 @@ N_GRAD = 10  # gradient rows P_MX .. P_DEPTH
 def _bwd_lib():
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     return kernel_lib("composite_tiles_bwd.cu", "composite_tiles_bwd_launch",
-                      [p, i64, p, p, p, p, p, i64, i32, i32, i32, i32, i32, p])
+                      [p, i64, p, p, p, p, p, p, p, i64, i32, i32, i32, i32, i32, i32, i32, p])
 
 
-def _check_grad(bins: TileBins, grad_out: torch.Tensor, width: int, height: int,
-                max_objects: int) -> None:
+def _check_grad(bins: TileBins, grad_out: torch.Tensor, out, partials, width: int, height: int,
+                max_objects: int, chunk_entries: int) -> None:
     want = (height, width, num_channels(max_objects))
-    if grad_out.dtype != torch.float32 or tuple(grad_out.shape) != want:
+    if out is None or partials is None:
         raise ValueError(
-            f"grad_out: want float32 {want}, got {grad_out.dtype} {tuple(grad_out.shape)}"
+            "composite_tiles_backward needs the forward's output and per-item partials "
+            "(composite_tiles(..., return_partials=True))"
         )
-    if grad_out.device != bins.params.device:
-        raise ValueError(f"grad_out on {grad_out.device}, params on {bins.params.device}")
+    expect = {"grad_out": (grad_out, want), "out": (out, want),
+              "partials": (partials, partials_shape(bins, max_objects, chunk_entries))}
+    for name, (t, shape) in expect.items():
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: want float32 {shape}, got {t.dtype} {tuple(t.shape)}")
+        if t.device != bins.params.device:
+            raise ValueError(f"{name} on {t.device}, params on {bins.params.device}")
 
 
 def composite_tiles_backward(
-    bins: TileBins, grad_out: torch.Tensor, width: int, height: int, max_objects: int
+    bins: TileBins, grad_out: torch.Tensor, out: torch.Tensor, partials: torch.Tensor,
+    width: int, height: int, max_objects: int, chunk_entries: int = CHUNK_ENTRIES,
 ) -> torch.Tensor:
     """Per-entry gradients [10, M] (rows P_MX .. P_DEPTH) from the cotangent
-    ``grad_out`` [H, W, 5 + 3K + 2] of ``composite_tiles``' output.
+    ``grad_out`` [H, W, 5 + 3K + 2] of ``composite_tiles``' output ``out``,
+    given that call's per-item ``partials`` (``return_partials=True``, the
+    same ``chunk_entries``).  Raises when either is missing.
 
     CPU tensors run ``composite_tiles_backward_torch``; CUDA tensors launch
     the kernel on the current stream (built at first use) or raise."""
     _check_bins(bins, width, height, max_objects)
-    _check_grad(bins, grad_out, width, height, max_objects)
+    _check_grad(bins, grad_out, out, partials, width, height, max_objects, chunk_entries)
     if bins.params.device.type == "cpu":
-        return composite_tiles_backward_torch(bins, grad_out, width, height, max_objects)
+        return composite_tiles_backward_torch(bins, grad_out, out, partials, width, height,
+                                              max_objects, chunk_entries=chunk_entries)
     if bins.params.device.type != "cuda":
         raise ValueError(f"composite_tiles_backward: unsupported device {bins.params.device}")
     dev = bins.params.device
     grad_out = grad_out.contiguous()  # slices of the outputs arrive strided
+    out, partials = out.contiguous(), partials.contiguous()
     n_entries = bins.entry_splat.numel()
     entry_grad = torch.empty((N_GRAD, n_entries), dtype=torch.float32, device=dev)
     lib = _bwd_lib()
@@ -96,9 +110,9 @@ def composite_tiles_backward(
         err = lib.composite_tiles_bwd_launch(
             bins.params.data_ptr(), bins.params.shape[1],
             bins.entry_splat.data_ptr(), bins.tile_start.data_ptr(),
-            bins.tile_count.data_ptr(), grad_out.data_ptr(),
-            entry_grad.data_ptr(), n_entries,
-            width, height, bins.n_tiles_x, bins.n_tiles_y, max_objects,
+            bins.tile_count.data_ptr(), grad_out.data_ptr(), out.data_ptr(),
+            partials.data_ptr(), entry_grad.data_ptr(), n_entries, partials.shape[0],
+            width, height, bins.n_tiles_x, bins.n_tiles_y, max_objects, chunk_entries,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
@@ -110,81 +124,87 @@ def composite_tiles_backward(
 composite_tiles_backward.launches = 0
 
 
+def _per_tile(img: torch.Tensor, bins: TileBins) -> torch.Tensor:
+    """[H, W, F] -> [n_tiles, PX, F], zero past the ragged edge."""
+    ntx, nty = bins.n_tiles_x, bins.n_tiles_y
+    h, w, f = img.shape
+    t = torch.zeros(nty * B.TILE, ntx * B.TILE, f, device=img.device)
+    t[:h, :w] = img
+    return t.reshape(nty, B.TILE, ntx, B.TILE, f).permute(0, 2, 1, 3, 4).reshape(ntx * nty, -1, f)
+
+
 def composite_tiles_backward_torch(
-    bins: TileBins, grad_out: torch.Tensor, width: int, height: int, max_objects: int,
-    chunk: int = 64,
+    bins: TileBins, grad_out: torch.Tensor, out: torch.Tensor, partials: torch.Tensor,
+    width: int, height: int, max_objects: int, chunk: int = 64,
+    chunk_entries: int = CHUNK_ENTRIES,
 ) -> torch.Tensor:
     """Plain torch version of the backward kernel, same inputs and [10, M]
     output.  Vectorised over tiles in chunks of entries, like
-    ``composite_tiles_torch``: pass 1 accumulates the totals and the final
-    transmittances chunk by chunk, pass 2 walks again with prefix sums."""
+    ``composite_tiles_torch``, in one walk: the totals come from ``out``,
+    and each work item starts from the state the partials of the items
+    before it give."""
     _check_bins(bins, width, height, max_objects)
-    _check_grad(bins, grad_out, width, height, max_objects)
+    _check_grad(bins, grad_out, out, partials, width, height, max_objects, chunk_entries)
     dev = bins.params.device
     k = max_objects
-    ntx, nty = bins.n_tiles_x, bins.n_tiles_y
-    n_tiles = ntx * nty
+    n_tiles = bins.n_tiles_x * bins.n_tiles_y
     px_n = B.TILE * B.TILE
 
-    # cotangent per tile [n_tiles, PX, F]; pixels past the ragged edge are 0
-    g = torch.zeros(nty * B.TILE, ntx * B.TILE, num_channels(k), device=dev)
-    g[:height, :width] = grad_out
-    g = g.reshape(nty, B.TILE, ntx, B.TILE, -1).permute(0, 2, 1, 3, 4).reshape(n_tiles, px_n, -1)
+    # cotangent and forward output per tile [n_tiles, PX, F]; pixels past
+    # the ragged edge have zero cotangent
+    g, o = _per_tile(grad_out, bins), _per_tile(out, bins)
     g_a, g_b, g_c = g[..., : 5 + k], g[..., 5 + k : 5 + 2 * k], g[..., 5 + 2 * k : 5 + 3 * k]
     g_tf, g_tn = g[..., 5 + 3 * k], g[..., 5 + 3 * k + 1]
+    s_full = (o[..., : 5 + k] * g_a).sum(-1)
+    s_ne = (o[..., 5 + k : 5 + 2 * k] * g_b).sum(-1)
+    t_full_end, t_ne_end = o[..., 5 + 3 * k], o[..., 5 + 3 * k + 1]
 
     kk = torch.arange(k, device=dev)
-
-    def chunks():
-        """Per step of ``tile_chunks``: the forward's alphas and the
-        features' dot products with the cotangent."""
-        for c in tile_chunks(bins, chunk):
-            a = torch.where(c.keep, c.alpha, torch.zeros_like(c.alpha))
-            obj = c.p[B.P_OBJ].long()  # [A, C]
-            env = (obj == 0)[:, None, :]
-            onehot = (obj[..., None] == kk).to(torch.float32)  # [A, C, K]
-            feat = torch.cat(
-                [c.p[[B.P_R, B.P_G, B.P_B, B.P_DEPTH]].permute(1, 2, 0),
-                 torch.ones_like(onehot[..., :1]), onehot],
-                dim=-1,
-            )  # [A, C, 5 + K]
-            fg = torch.bmm(g_a[c.act], feat.transpose(1, 2))  # feat . gA: [A, PX, C]
-            fg_ne = torch.bmm(g_b[c.act], onehot.transpose(1, 2))
-            yield c, dict(a=a, a_ne=torch.where(env, torch.zeros_like(a), a), env=env,
-                          onehot=onehot, fg=fg, fg_ne=fg_ne)
 
     def excl_and_total(a_c):
         keep_frac = torch.cumprod(1.0 - a_c, dim=-1)
         excl = torch.cat([torch.ones_like(keep_frac[..., :1]), keep_frac[..., :-1]], -1)
         return excl, keep_frac[..., -1]
 
-    # ---- pass 1: totals S, S_ne and the final transmittances ----------------
-    t_full = torch.ones(n_tiles, px_n, device=dev)
-    t_ne = torch.ones(n_tiles, px_n, device=dev)
-    s_full = torch.zeros(n_tiles, px_n, device=dev)
-    s_ne = torch.zeros(n_tiles, px_n, device=dev)
-    for t_c, c in chunks():
-        act = t_c.act
-        for a_c, f_c, t, s in ((c["a"], c["fg"], t_full, s_full),
-                               (c["a_ne"], c["fg_ne"], t_ne, s_ne)):
-            excl, frac = excl_and_total(a_c)
-            s[act] += (a_c * excl * t[act][:, :, None] * f_c).sum(-1)
-            t[act] = t[act] * frac
-    t_full_end, t_ne_end = t_full, t_ne
-
-    # ---- pass 2: per-entry gradients ------------------------------------------
+    # the running state (transmittances, prefix sums) and the start state
+    # of the current item, carried over the items' partials
+    _, first = tile_items(bins, chunk_entries)
+    t_full, t_ne = torch.ones(n_tiles, px_n, device=dev), torch.ones(n_tiles, px_n, device=dev)
+    r_full, r_ne = torch.zeros(n_tiles, px_n, device=dev), torch.zeros(n_tiles, px_n, device=dev)
+    start = [t.clone() for t in (t_full, t_ne, r_full, r_ne)]
+    item = 0
     entry_grad = torch.zeros(N_GRAD, bins.entry_splat.numel(), device=dev)
-    t_full = torch.ones(n_tiles, px_n, device=dev)
-    t_ne = torch.ones(n_tiles, px_n, device=dev)
-    r_full = torch.zeros(n_tiles, px_n, device=dev)
-    r_ne = torch.zeros(n_tiles, px_n, device=dev)
-    for t_c, c in chunks():
-        act, a = t_c.act, c["a"]
+    for t_c in tile_chunks(bins, chunk, chunk_entries):
+        act = t_c.act
+        if t_c.lo // chunk_entries > item:  # the next item: fold in the one before
+            item = t_c.lo // chunk_entries
+            part = partials[first[act] + item - 1].transpose(1, 2)  # [A, PX, F]
+            t0, t0_ne, p0, p0_ne = start
+            p0[act] += t0[act] * (part[..., : 5 + k] * g_a[act]).sum(-1)
+            p0_ne[act] += t0_ne[act] * (part[..., 5 + k : 5 + 2 * k] * g_b[act]).sum(-1)
+            t0[act] *= part[..., 5 + 3 * k]
+            t0_ne[act] *= part[..., 5 + 3 * k + 1]
+            for run, st in zip((t_full, t_ne, r_full, r_ne), start):
+                run[act] = st[act]
+
+        a = torch.where(t_c.keep, t_c.alpha, torch.zeros_like(t_c.alpha))
+        obj = t_c.p[B.P_OBJ].long()  # [A, C]
+        env = (obj == 0)[:, None, :]
+        onehot = (obj[..., None] == kk).to(torch.float32)  # [A, C, K]
+        feat = torch.cat(
+            [t_c.p[[B.P_R, B.P_G, B.P_B, B.P_DEPTH]].permute(1, 2, 0),
+             torch.ones_like(onehot[..., :1]), onehot],
+            dim=-1,
+        )  # [A, C, 5 + K]
+        fg = torch.bmm(g_a[act], feat.transpose(1, 2))  # feat . gA: [A, PX, C]
+        fg_ne = torch.bmm(g_b[act], onehot.transpose(1, 2))
+        a_ne = torch.where(env, torch.zeros_like(a), a)
+
         da = torch.zeros_like(a)
         w_full = None
         for a_c, f_c, t, r, s, t_end, g_t, mask in (
-            (a, c["fg"], t_full, r_full, s_full, t_full_end, g_tf, None),
-            (c["a_ne"], c["fg_ne"], t_ne, r_ne, s_ne, t_ne_end, g_tn, c["env"]),
+            (a, fg, t_full, r_full, s_full, t_full_end, g_tf, None),
+            (a_ne, fg_ne, t_ne, r_ne, s_ne, t_ne_end, g_tn, env),
         ):
             excl, frac = excl_and_total(a_c)
             t_excl = excl * t[act][:, :, None]
@@ -198,7 +218,7 @@ def composite_tiles_backward_torch(
             if w_full is None:
                 w_full = w
         # amodal: d log(1 - a) / da for every kept entry, environment included
-        da = da - torch.bmm(g_c[act], c["onehot"].transpose(1, 2)) / (1.0 - a)
+        da = da - torch.bmm(g_c[act], onehot.transpose(1, 2)) / (1.0 - a)
         da = da * (t_c.keep & (t_c.raw < 0.99)).to(torch.float32)
         dpow = da * a  # d raw / d power = raw = alpha when unclamped
         dx, dy = t_c.dx, t_c.dy
@@ -230,24 +250,27 @@ class CompositeTiles(torch.autograd.Function):
 
     apply(params, abs_grad_sink, entry_splat, tile_start, tile_count, n_tiles_x,
     n_tiles_y, max_object_id, width, height, max_objects) -> [H, W, F]; the
-    gradient reaches ``params`` and, when given, ``abs_grad_sink``."""
+    gradient reaches ``params`` and, when given, ``abs_grad_sink``.  The
+    output and the per-item partials are saved for the backward's one walk;
+    autograd's version check raises if anything edits the output in place."""
 
     @staticmethod
     def forward(ctx, params, abs_grad_sink, entry_splat, tile_start, tile_count,
                 n_tiles_x, n_tiles_y, max_object_id, width, height, max_objects):
         bins = TileBins(params, entry_splat, tile_start, tile_count,
                         n_tiles_x, n_tiles_y, max_object_id)
-        ctx.save_for_backward(params, entry_splat, tile_start, tile_count)
+        out, partials = composite_tiles(bins, width, height, max_objects, return_partials=True)
+        ctx.save_for_backward(params, entry_splat, tile_start, tile_count, out, partials)
         ctx.meta = (n_tiles_x, n_tiles_y, max_object_id, width, height, max_objects)
-        return composite_tiles(bins, width, height, max_objects)
+        return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, grad_out):
-        params, entry_splat, tile_start, tile_count = ctx.saved_tensors
+        params, entry_splat, tile_start, tile_count, out, partials = ctx.saved_tensors
         ntx, nty, max_id, width, height, k = ctx.meta
         bins = TileBins(params, entry_splat, tile_start, tile_count, ntx, nty, max_id)
-        entry_grad = composite_tiles_backward(bins, grad_out, width, height, k)
+        entry_grad = composite_tiles_backward(bins, grad_out, out, partials, width, height, k)
         dparams = entry_grads_to_splats(bins, entry_grad)
         dsink = None
         if ctx.needs_input_grad[1]:

@@ -10,7 +10,11 @@ budgets / caps exist for Mosaic's static shapes and VMEM windows
 (rasterize_pallas.py:379-528), and exact binning has none of them.
 
 Source note for the kernel (what bounds it on an H100 and what the design
-does about it) is at the top of ``csrc/composite_tiles.cu``.
+does about it) is at the top of ``csrc/composite_tiles.cu``.  The kernel
+cuts every tile's segment into work items of at most ``CHUNK_ENTRIES``
+entries, one block each, and combines the items of a tile in order; the
+plain version composites and combines with the same association, so the
+CPU tests exercise the combine too.
 
 Output channels of both versions, per pixel ([H, W, F], F = 5 + 3K + 2):
   0:3 rgb (premultiplied, no background), 3 depth, 4 alpha, 5:5+K seg,
@@ -38,6 +42,13 @@ from pegasus_tpu_torch.ops.projection import project_gaussians
 from pegasus_tpu_torch.ops.rasterize_ref import RenderOutputs
 
 MAX_OBJECTS_LIMIT = 32  # the kernel's largest register-resident K
+# Entries per work item, C: segments longer than this are split across
+# blocks.  At the 210k-splat orbit view (mean 466 entries per tile, p99
+# 4,359, max 5,738) C = 256 makes 2,874 items of 1,200 tiles, and at the
+# training shape (mean 408, max 2,875) 2,532 of 1,024.  chip_smoke.py times
+# both kernels at C = 128, 256, 512 and 1024; PERF.md has the times and
+# why 256.
+CHUNK_ENTRIES = 256
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = _CSRC / "build"
@@ -105,10 +116,56 @@ def kernel_lib(source: str, entry: str, argtypes: list) -> ctypes.CDLL:
     return lib
 
 
+_P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+FWD_ARGTYPES = [_P, _I64, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _P]
+
+
 def _kernel_lib():
-    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    return kernel_lib("composite_tiles.cu", "composite_tiles_launch",
-                      [p, i64, p, p, p, p, i32, i32, i32, i32, i32, p])
+    return kernel_lib("composite_tiles.cu", "composite_tiles_launch", FWD_ARGTYPES)
+
+
+def max_items(n_entries: int, n_tiles: int, chunk_entries: int) -> int:
+    """Bound on the work items of a frame, from sizes the host knows:
+    every tile holds max(1, ceil(count / C)) <= count / C + 1 items."""
+    return -(-n_entries // chunk_entries) + n_tiles
+
+
+def tile_items(bins: TileBins, chunk_entries: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(items per tile, index of each tile's first item), int64 [n_tiles]:
+    the numbering both kernels derive on the device (composite_common.cuh)."""
+    count = bins.tile_count.long()
+    n = torch.where(count > chunk_entries, -(-count // chunk_entries), torch.ones_like(count))
+    return n, torch.cumsum(n, 0) - n
+
+
+def partials_shape(bins: TileBins, max_objects: int, chunk_entries: int) -> tuple[int, int, int]:
+    """[items bound, F, 256]: one row of per-pixel partials per work item."""
+    n_tiles = bins.n_tiles_x * bins.n_tiles_y
+    return (max_items(bins.entry_splat.numel(), n_tiles, chunk_entries),
+            num_channels(max_objects), B.TILE * B.TILE)
+
+
+def launch_composite(fn, bins: TileBins, width: int, height: int, max_objects: int,
+                     chunk_entries: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch a ``composite_tiles_launch`` entry point (``fn``, argtypes
+    ``FWD_ARGTYPES``) on the current stream -> (out [H, W, F], partials)."""
+    dev = bins.params.device
+    out = torch.empty((height, width, num_channels(max_objects)), dtype=torch.float32, device=dev)
+    shape = partials_shape(bins, max_objects, chunk_entries)
+    partials = torch.empty(shape, dtype=torch.float32, device=dev)
+    tile_done = torch.empty(bins.n_tiles_x * bins.n_tiles_y, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = fn(
+            bins.params.data_ptr(), bins.params.shape[1],
+            bins.entry_splat.data_ptr(), bins.tile_start.data_ptr(),
+            bins.tile_count.data_ptr(), out.data_ptr(), partials.data_ptr(),
+            tile_done.data_ptr(), shape[0],
+            width, height, bins.n_tiles_x, bins.n_tiles_y, max_objects, chunk_entries,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"composite_tiles kernel launch failed: CUDA error {err}")
+    return out, partials
 
 
 def _check_bins(bins: TileBins, width: int, height: int, max_objects: int) -> None:
@@ -145,34 +202,28 @@ def _check_bins(bins: TileBins, width: int, height: int, max_objects: int) -> No
 
 
 def composite_tiles(
-    bins: TileBins, width: int, height: int, max_objects: int
-) -> torch.Tensor:
-    """Composite every tile's entries front to back -> [H, W, F] float32.
+    bins: TileBins, width: int, height: int, max_objects: int,
+    chunk_entries: int = CHUNK_ENTRIES, return_partials: bool = False,
+):
+    """Composite every tile's entries front to back -> [H, W, F] float32,
+    or (out, partials) with ``return_partials``: the per-item partials
+    ``composite_tiles_backward`` needs (rows of tiles of more than one item;
+    shape ``partials_shape``).
 
     CPU tensors run ``composite_tiles_torch``; CUDA tensors launch the
     kernel on the current stream (built at first use) or raise."""
     _check_bins(bins, width, height, max_objects)
+    if chunk_entries < 1:
+        raise ValueError(f"chunk_entries={chunk_entries} < 1")
     if bins.params.device.type == "cpu":
-        return composite_tiles_torch(bins, width, height, max_objects)
+        return composite_tiles_torch(bins, width, height, max_objects,
+                                     chunk_entries=chunk_entries, return_partials=return_partials)
     if bins.params.device.type != "cuda":
         raise ValueError(f"composite_tiles: unsupported device {bins.params.device}")
-    dev = bins.params.device
-    out = torch.empty(
-        (height, width, num_channels(max_objects)), dtype=torch.float32, device=dev
-    )
-    lib = _kernel_lib()
-    with torch.cuda.device(dev):
-        err = lib.composite_tiles_launch(
-            bins.params.data_ptr(), bins.params.shape[1],
-            bins.entry_splat.data_ptr(), bins.tile_start.data_ptr(),
-            bins.tile_count.data_ptr(), out.data_ptr(),
-            width, height, bins.n_tiles_x, bins.n_tiles_y, max_objects,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"composite_tiles kernel launch failed: CUDA error {err}")
+    out, partials = launch_composite(_kernel_lib().composite_tiles_launch, bins, width, height,
+                                     max_objects, chunk_entries)
     composite_tiles.launches += 1
-    return out
+    return (out, partials) if return_partials else out
 
 
 composite_tiles.launches = 0
@@ -182,6 +233,7 @@ class TileChunk(NamedTuple):
     """One step of the plain versions: entries [lo, lo + C) of every tile
     still holding that many, and each (pixel, entry) pair's alpha."""
 
+    lo: int  # first entry of the step, counted from each tile's start
     act: torch.Tensor  # [A] tiles with entries left
     ok: torch.Tensor  # [A, C] the entry exists
     idx: torch.Tensor  # [A, C] its index in entry_splat (0 where not ok)
@@ -196,10 +248,11 @@ class TileChunk(NamedTuple):
     keep: torch.Tensor  # the kernels' keep rule, and ok
 
 
-def tile_chunks(bins: TileBins, chunk: int):
+def tile_chunks(bins: TileBins, chunk: int, chunk_entries: int | None = None):
     """Walk every tile's segment ``chunk`` entries at a time, vectorised
     over tiles, with the kernels' alpha expressions (composite_common.cuh:
-    the same products and sums, left to right)."""
+    the same products and sums, left to right).  With ``chunk_entries`` no
+    step crosses a work item's boundary (a multiple of it)."""
     dev = bins.params.device
     ntx, n_tiles = bins.n_tiles_x, bins.n_tiles_x * bins.n_tiles_y
     lin = torch.arange(B.TILE * B.TILE, device=dev)
@@ -210,9 +263,13 @@ def tile_chunks(bins: TileBins, chunk: int):
     count = bins.tile_count.long()
     entry_splat = bins.entry_splat.long()
     max_count = int(count.max()) if n_tiles else 0
-    for lo in range(0, max_count, chunk):
+    lo = 0
+    while lo < max_count:
+        width = chunk
+        if chunk_entries is not None:
+            width = min(chunk, (lo // chunk_entries + 1) * chunk_entries - lo)
         act = torch.nonzero(count > lo)[:, 0]
-        e = lo + torch.arange(chunk, device=dev)
+        e = lo + torch.arange(width, device=dev)
         ok = e[None, :] < count[act, None]  # [A, C]
         idx = torch.where(ok, start[act, None] + e[None, :], 0)
         p = bins.params[:, entry_splat[idx]]  # [F, A, C]
@@ -229,17 +286,34 @@ def tile_chunks(bins: TileBins, chunk: int):
             (power <= 0.0) & (alpha >= 1.0 / 255.0)
             & (torch.abs(dx) <= rad) & (torch.abs(dy) <= rad) & ok[:, None, :]
         )
-        yield TileChunk(act, ok, idx, p, px, py, dx, dy, exppow, raw, alpha, keep)
+        yield TileChunk(lo, act, ok, idx, p, px, py, dx, dy, exppow, raw, alpha, keep)
+        lo += width
+
+
+def over(acc: torch.Tensor, part: torch.Tensor, k: int) -> torch.Tensor:
+    """Composite ``part`` behind ``acc`` ([..., F] in the output's channel
+    order, each composited from T = 1): the combine of two work items."""
+    t, t_ne = acc[..., 5 + 3 * k, None], acc[..., 5 + 3 * k + 1, None]
+    return torch.cat([
+        acc[..., : 5 + k] + t * part[..., : 5 + k],
+        acc[..., 5 + k : 5 + 2 * k] + t_ne * part[..., 5 + k : 5 + 2 * k],
+        acc[..., 5 + 2 * k : 5 + 3 * k] + part[..., 5 + 2 * k : 5 + 3 * k],
+        t * part[..., 5 + 3 * k, None],
+        t_ne * part[..., 5 + 3 * k + 1, None],
+    ], dim=-1)
 
 
 def composite_tiles_torch(
-    bins: TileBins, width: int, height: int, max_objects: int, chunk: int = 64
-) -> torch.Tensor:
-    """Plain torch version of the kernel, same inputs and [H, W, F] output.
+    bins: TileBins, width: int, height: int, max_objects: int, chunk: int = 64,
+    chunk_entries: int = CHUNK_ENTRIES, return_partials: bool = False,
+):
+    """Plain torch version of the kernel, same inputs and outputs.
 
     Vectorised over tiles (``tile_chunks``): each step composites a chunk
     of entries with an exclusive cumulative product of (1 - alpha) and
-    carries the transmittances to the next step."""
+    carries the transmittances to the next step.  Like the kernel, each
+    work item of ``chunk_entries`` entries composites from T = 1 and is
+    combined into its tile's result in order (``over``)."""
     _check_bins(bins, width, height, max_objects)
     dev = bins.params.device
     k = max_objects
@@ -247,13 +321,36 @@ def composite_tiles_torch(
     n_tiles = ntx * nty
     px_n = B.TILE * B.TILE
 
-    t_full = torch.ones(n_tiles, px_n, device=dev)
-    t_ne = torch.ones(n_tiles, px_n, device=dev)
-    acc = torch.zeros(n_tiles, px_n, 5 + 2 * k, device=dev)
-    amodal_log = torch.zeros(n_tiles, px_n, k, device=dev)
+    count = bins.tile_count.long()
+    multi = count > chunk_entries
+    _, first = tile_items(bins, chunk_entries)
+    partials = torch.zeros(partials_shape(bins, k, chunk_entries), device=dev)
+    identity = torch.cat([torch.zeros(n_tiles, px_n, 5 + 3 * k, device=dev),
+                          torch.ones(n_tiles, px_n, 2, device=dev)], dim=-1)
+    total = identity
+
+    def fresh():
+        """The current item's state: t_full, t_ne, A and vis sums, amodal log."""
+        return (torch.ones(n_tiles, px_n, device=dev), torch.ones(n_tiles, px_n, device=dev),
+                torch.zeros(n_tiles, px_n, 5 + 2 * k, device=dev),
+                torch.zeros(n_tiles, px_n, k, device=dev))
+
+    def finish(item, state):
+        """Item ``item`` of every tile that has it is done: keep its
+        partials (tiles of several items) and combine it in order."""
+        t_full, t_ne, acc, amodal_log = state
+        part = torch.cat([acc, amodal_log, t_full[..., None], t_ne[..., None]], dim=-1)
+        rows = multi & (count > item * chunk_entries)
+        partials[first[rows] + item] = part[rows].transpose(1, 2)
+        return over(total, part, k)
 
     kk = torch.arange(k, device=dev)
-    for c in tile_chunks(bins, chunk):
+    item, state = 0, fresh()
+    for c in tile_chunks(bins, chunk, chunk_entries):
+        if c.lo // chunk_entries > item:
+            total = finish(item, state)
+            item, state = c.lo // chunk_entries, fresh()
+        t_full, t_ne, acc, amodal_log = state
         act, p = c.act, c.p
         a = torch.where(c.keep, c.alpha, torch.zeros_like(c.alpha))
 
@@ -277,10 +374,11 @@ def composite_tiles_torch(
             [torch.bmm(w_full, feat), torch.bmm(w_ne, onehot)], dim=-1
         )
         amodal_log[act] += torch.bmm(torch.log1p(-a), onehot)
+    total = finish(item, state)
 
-    out = torch.cat([acc, amodal_log, t_full[..., None], t_ne[..., None]], dim=-1)
-    out = out.reshape(nty, ntx, B.TILE, B.TILE, -1).permute(0, 2, 1, 3, 4)
-    return out.reshape(nty * B.TILE, ntx * B.TILE, -1)[:height, :width].contiguous()
+    out = total.reshape(nty, ntx, B.TILE, B.TILE, -1).permute(0, 2, 1, 3, 4)
+    out = out.reshape(nty * B.TILE, ntx * B.TILE, -1)[:height, :width].contiguous()
+    return (out, partials) if return_partials else out
 
 
 def outputs_from_channels(out: torch.Tensor, background, max_objects: int) -> RenderOutputs:

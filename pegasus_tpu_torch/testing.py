@@ -155,6 +155,50 @@ def make_box_mesh(half_extents=(0.05, 0.05, 0.08), center=(0.0, 0.0, 0.0)):
     return verts, faces
 
 
+def make_tile_pileup(
+    rng: np.random.Generator,
+    tile_counts: dict,
+    width: int,
+    height: int,
+    max_objects: int = 1,
+    device=DEFAULT_DEVICE,
+):
+    """Projected splats piled onto chosen tiles: ``tile_counts[t]`` splats
+    whose 3-sigma boxes lie inside 16x16 tile t (row-major), so that exact
+    binning gives tile t exactly that many entries and every other tile
+    none.  Radii 1.5-6 px, random conics, opacities 0.01-0.6, distinct
+    random depths, object ids in [0, max_objects).  Returns a
+    ``ProjectedGaussians`` for ``bin_splats``."""
+    import torch
+
+    from pegasus_tpu_torch.ops.projection import ProjectedGaussians
+
+    ntx = -(-width // 16)
+    tiles = np.concatenate([np.full(n, t, np.int64) for t, n in tile_counts.items()])
+    n = tiles.size
+    r = rng.uniform(1.5, 6.0, n)
+    lo_x, lo_y = (tiles % ntx) * 16.0, (tiles // ntx) * 16.0
+    mx = lo_x + r + 0.01 + rng.uniform(0, 1, n) * (16.0 - 2 * r - 0.02)
+    my = lo_y + r + 0.01 + rng.uniform(0, 1, n) * (16.0 - 2 * r - 0.02)
+    sx, sy = r / 3 * rng.uniform(0.5, 1.0, n), r / 3 * rng.uniform(0.5, 1.0, n)
+    rho = rng.uniform(-0.6, 0.6, n)
+    det = (sx * sy) ** 2 * (1 - rho**2)
+    cols = {
+        "mean_x": mx, "mean_y": my,
+        "conic_a": sy**2 / det, "conic_b": -rho * sx * sy / det, "conic_c": sx**2 / det,
+        "color_r": rng.uniform(0, 1, n), "color_g": rng.uniform(0, 1, n),
+        "color_b": rng.uniform(0, 1, n),
+        "opacity": rng.uniform(0.01, 0.6, n), "depth": rng.permutation(n) * 1e-3 + 1.0,
+        "radius": r,
+    }
+    t = {k: torch.tensor(v, dtype=torch.float32, device=device) for k, v in cols.items()}
+    return ProjectedGaussians(
+        **t,
+        object_id=torch.tensor(rng.integers(0, max_objects, n), dtype=torch.int32, device=device),
+        valid=torch.ones(n, dtype=torch.bool, device=device),
+    )
+
+
 def make_colmap_hemisphere(
     n_images: int = 24,
     radius: float = 1.5,

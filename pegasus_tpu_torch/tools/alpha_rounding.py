@@ -158,26 +158,14 @@ def _build(src: Path) -> ctypes.CDLL:
 
 
 def _launcher(lib: ctypes.CDLL):
-    import torch
-
-    from pegasus_tpu_torch.ops.rasterize_cuda import num_channels
+    from pegasus_tpu_torch.ops.rasterize_cuda import (CHUNK_ENTRIES, FWD_ARGTYPES,
+                                                       launch_composite)
 
     fn = lib.composite_tiles_launch
-    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    fn.argtypes = [p, i64, p, p, p, p, i32, i32, i32, i32, i32, p]
+    fn.argtypes = FWD_ARGTYPES
     fn.restype = ctypes.c_int
-
-    def run(bins, width, height, k):
-        out = torch.empty((height, width, num_channels(k)), device=bins.params.device)
-        err = fn(bins.params.data_ptr(), bins.params.shape[1], bins.entry_splat.data_ptr(),
-                 bins.tile_start.data_ptr(), bins.tile_count.data_ptr(), out.data_ptr(),
-                 width, height, bins.n_tiles_x, bins.n_tiles_y, k,
-                 torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"composite_tiles launch failed: CUDA error {err}")
-        return out
-
-    return run
+    return lambda bins, width, height, k: launch_composite(fn, bins, width, height, k,
+                                                           CHUNK_ENTRIES)[0]
 
 
 def _flips(lib: ctypes.CDLL, bins, width, height) -> dict:

@@ -7,7 +7,9 @@ and the plain backward, ``composite_tiles_backward_torch``.  Tolerances:
 
 * plain backward vs autograd through the plain forward (same float32
   arithmetic, sums in another order): cosine > 0.99999, rtol 1e-3,
-  atol 1e-6;
+  atol 1e-6.  The backward reads its totals off the forward's output and
+  walks once, so on a long tile the suffix S - prefix cancels; the
+  pile-up scene holds one tile of about 2,000 entries to test that;
 * port vs JAX (two implementations, two binnings whose depth ties break
   differently): the JAX package's own tolerances between two backends,
   tests/test_pallas_vjp.py: loss rtol 1e-4, cosine > 0.999, rtol 2e-2,
@@ -32,11 +34,14 @@ from pegasus_tpu_torch.interop import (CAMERA_FIELDS, CLOUD_FIELDS,
 from pegasus_tpu_torch.ops.binning import bin_splats
 from pegasus_tpu_torch.ops.composite_vjp import (composite_tiles_backward,
                                                  composite_tiles_backward_torch,
+                                                 composite_tiles_diff,
                                                  entry_grads_to_splats,
                                                  rasterize_diff,
                                                  rasterize_projected_diff)
 from pegasus_tpu_torch.ops.projection import project_gaussians
-from pegasus_tpu_torch.ops.rasterize_cuda import composite_tiles_torch, num_channels
+from pegasus_tpu_torch.ops.rasterize_cuda import (CHUNK_ENTRIES, composite_tiles_torch,
+                                                   num_channels, tile_items)
+from pegasus_tpu_torch.testing import make_tile_pileup
 
 torch.set_num_threads(1)
 
@@ -100,16 +105,91 @@ def test_plain_backward_matches_autograd(scene):
     g = torch.tensor(np.random.default_rng(1).normal(size=(H, W, num_channels(k))), dtype=torch.float32)
     params = bins.params.clone().requires_grad_(True)
     (composite_tiles_torch(bins._replace(params=params), W, H, k) * g).sum().backward()
-    entry_grad = composite_tiles_backward(bins, g, W, H, k)  # CPU: the plain version
+    out, partials = composite_tiles_torch(bins, W, H, k, return_partials=True)
+    entry_grad = composite_tiles_backward(bins, g, out, partials, W, H, k)  # CPU: the plain version
     # the chunk of entries per step changes only the order of the sums
-    torch.testing.assert_close(entry_grad, composite_tiles_backward_torch(bins, g, W, H, k, chunk=7),
-                               rtol=1e-3, atol=1e-4)
-    got = entry_grads_to_splats(bins, entry_grad)
+    torch.testing.assert_close(
+        entry_grad, composite_tiles_backward_torch(bins, g, out, partials, W, H, k, chunk=7),
+        rtol=1e-3, atol=1e-4)
+    assert_splat_grads_agree(entry_grads_to_splats(bins, entry_grad), params.grad)
+
+
+def assert_splat_grads_agree(got, want):
+    """Per parameter row: cosine > 0.99999, rtol 1e-3, atol 1e-6; rows
+    P_RADIUS and P_OBJ exactly zero."""
     assert torch.all(got[10:] == 0)
     for r in range(10):
-        assert cosine(got[r], params.grad[r]) > 0.99999, r
-        np.testing.assert_allclose(got[r].numpy(), params.grad[r].numpy(), rtol=1e-3, atol=1e-6,
+        assert cosine(got[r], want[r]) > 0.99999, r
+        np.testing.assert_allclose(got[r].numpy(), want[r].numpy(), rtol=1e-3, atol=1e-6,
                                    err_msg=f"row {r}")
+
+
+def pileup_bins(chunk_entries, k, seed=2):
+    """64x40 pile-up: tile 0 holds ~2,000 entries, tiles 1-3 hold C - 1, C
+    and C + 1, tile 9 (on the ragged bottom row) some, every other none."""
+    c = chunk_entries
+    proj = make_tile_pileup(np.random.default_rng(seed), {0: 2_000, 1: c - 1, 2: c, 3: c + 1, 9: 60},
+                            64, 40, k, device="cpu")
+    return bin_splats(proj, 64, 40)
+
+
+@pytest.mark.parametrize("chunk_entries,k", [(CHUNK_ENTRIES, 1), (CHUNK_ENTRIES, 3), (150, 3)])
+def test_one_walk_backward_matches_autograd_on_a_long_tile(chunk_entries, k):
+    """The one-walk plain backward, fed the forward's output and partials,
+    against autograd through the plain forward, where one tile's suffix
+    S - prefix runs over ~2,000 entries (several work items)."""
+    bins = pileup_bins(chunk_entries, k)
+    count = bins.tile_count.tolist()
+    assert count[0] == 2_000 and count[1:4] == [chunk_entries - 1, chunk_entries, chunk_entries + 1]
+    assert tile_items(bins, chunk_entries)[0][:4].tolist() == [-(-2_000 // chunk_entries), 1, 1, 2]
+    g = torch.tensor(np.random.default_rng(3).normal(size=(40, 64, num_channels(k))),
+                     dtype=torch.float32)
+    params = bins.params.clone().requires_grad_(True)
+    (composite_tiles_torch(bins._replace(params=params), 64, 40, k, chunk_entries=chunk_entries)
+     * g).sum().backward()
+    out, partials = composite_tiles_torch(bins, 64, 40, k, chunk_entries=chunk_entries,
+                                          return_partials=True)
+    entry_grad = composite_tiles_backward(bins, g, out, partials, 64, 40, k,
+                                          chunk_entries=chunk_entries)
+    assert_splat_grads_agree(entry_grads_to_splats(bins, entry_grad), params.grad)
+
+
+def test_item_split_changes_only_rounding():
+    """The plain forward composited in work items of 150 entries, combined
+    in order, against one item per tile; and the one-walk backward at both
+    splits.  Same entries, same order: float32 rounding only."""
+    k = 3
+    bins = pileup_bins(150, k)
+    whole, whole_p = composite_tiles_torch(bins, 64, 40, k, chunk_entries=10**6, return_partials=True)
+    split, split_p = composite_tiles_torch(bins, 64, 40, k, chunk_entries=150, return_partials=True)
+    torch.testing.assert_close(split, whole, rtol=1e-5, atol=1e-6)
+    g = torch.tensor(np.random.default_rng(4).normal(size=whole.shape), dtype=torch.float32)
+    torch.testing.assert_close(
+        composite_tiles_backward(bins, g, split, split_p, 64, 40, k, chunk_entries=150),
+        composite_tiles_backward(bins, g, whole, whole_p, 64, 40, k, chunk_entries=10**6),
+        rtol=1e-3, atol=1e-4)
+
+
+def test_backward_needs_the_forward_state(scene):
+    """No output or partials -> the backward raises (it never re-walks to
+    rebuild them); autograd refuses an in-place edit of the saved output
+    (its version check, or the view rule where the output is a view)."""
+    _, _, cloud, cam = scene
+    k = 2
+    bins = bin_splats(project_gaussians(cloud, cam), W, H)
+    out, partials = composite_tiles_torch(bins, W, H, k, return_partials=True)
+    g = torch.ones_like(out)
+    with pytest.raises(ValueError, match="partials"):
+        composite_tiles_backward(bins, g, out, None, W, H, k)
+    with pytest.raises(ValueError, match="partials"):
+        composite_tiles_backward(bins, g, None, partials, W, H, k)
+    with pytest.raises(ValueError, match="partials: want"):
+        composite_tiles_backward(bins, g, out, partials[:-1], W, H, k)
+    params = bins.params.clone().requires_grad_(True)
+    y = composite_tiles_diff(bins._replace(params=params), W, H, k)
+    with pytest.raises(RuntimeError, match="modified by an inplace operation|modified inplace"):
+        y.mul_(2.0)
+        y.sum().backward()
 
 
 def test_grad_parity_vs_jax(scene):
