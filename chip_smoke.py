@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port (``pegasus_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--from-phase N]
 
 Needs one CUDA device, ``nvcc`` and ``nvidia-smi``; imports nothing of JAX.
 Phases, each of which fails the run (nonzero exit) on any miss:
@@ -55,10 +55,39 @@ Phases, each of which fails the run (nonzero exit) on any miss:
    ``train_step`` calls and peak device memory, and with ``--profile`` a
    ``torch.profiler`` trace of 20 steps (device busy share, launches per
    step, each kernel's share of device time, and the device time of each
-   stage of ``train_step`` from its ``record_function`` ranges).
+   stage of ``train_step`` from its ``record_function`` ranges);
+9. physics on the card: the smoke scene (``asphalt`` + the six
+   ``SMOKE_OBJECTS``, ``init_bullet(random=False)``, 310 steps).  The
+   captured step replayed 310 times must equal the same steps launched op
+   by op on the card bitwise; each object's steps before its first contact
+   (some spawn overlapping) must agree with a CPU run of the port to 1e-5;
+   every state is finite, the environment never moves, no object sinks
+   below z = -0.05 and, with the drop continued to 620 steps, every
+   object's |linvel| < 0.15 at the last step (at step 310 one cup of this
+   scene still slides).  Prints ms per step launched op by
+   op and replayed, kernel launches per step (``torch.profiler``), seconds
+   per scene, and scenes/s and peak device memory of
+   ``simulate_variants(256)`` (with ``--profile`` also of 1000 variants);
+10. generation main path with physics: ``run_generation`` at 640x480 with
+   every modality over the 150k-splat environment and six 10k-splat
+   objects, ``simulation_steps = 310``, 3-6 objects per scene: one static
+   scene (10 cameras x 4 steps) and one dynamic scene (2 x 4) of one
+   dataset.  ``check_bop_tree`` on both scenes, ``check_bop_dataset`` ok,
+   two records in the stats JSONL, a further call resumes and renders
+   nothing, and the forward kernel's launch count equals the frames
+   rendered.  Prints per scene the physics / setup / render / finalize
+   seconds and shares and frames/s;
+11. scene variants: ``generate_scene_variants`` with V = 64 at 640x480 on a
+   210k-splat template (150k plane + 6 flat boxes of 10k), drops of 600
+   steps: one forward-kernel launch per variant, finite outputs, the gates
+   of phase 9 on the recorded drops, except that 95 % of the 384 boxes (not
+   every one) must lie still at the last step: six boxes dropped onto one
+   spot pile up, and a pile sheds a box now and then.  Prints variants/s.
 
-The last two lines are one JSON object for the kernels and one for the
-device; the last line is ``{"ok": true, "device": {...}}``.
+``--from-phase N`` (N > 3) skips phases 3 to N - 1 while a later phase is
+worked on; such a run prints no result lines.  The last two lines of a
+whole run are one JSON object for the kernels and one for the device; the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -107,6 +136,16 @@ OPS_BWD_KEPT = 53
 OPS_BWD_KEPT_OBJ = 10
 FWD_ABS_GATE = 1e-3  # forward kernel vs plain: max |diff| <= this x max(1, channel peak)
 CHUNK_SWEEP = (128, 256, 512, 1024)  # entries per work item timed beside CHUNK_ENTRIES
+SIM_STEPS = 310  # the reference's drop length (GenerationConfig.simulation_steps)
+SETTLE_STEPS = 620  # the smoke scene continued until every object lies still
+PHYSICS_VARIANTS = 256  # simulate_variants' batch in phase 9
+PHYSICS_VARIANTS_LARGE = 1000  # and with --profile: BASELINE.json's throughput config
+SCENE_VARIANTS = 64  # generate_scene_variants' V in phase 11
+VARIANT_STEPS = 600  # their drop length: six boxes land on each other and need longer to settle
+VARIANT_REST_SHARE = 0.95  # of 64 x 6 boxes: a pile sheds a box now and then, long after the rest lie still
+PRE_CONTACT_ATOL = 1e-5  # card vs CPU, steps before first contact
+SINK_LIMIT = -0.05  # no object's origin below this z, any step
+REST_LINVEL = 0.15  # every object's |linvel| at the last step
 
 def require(ok, message) -> None:
     """Fail the run (explicitly, so ``python -O`` cannot drop the check)."""
@@ -294,16 +333,18 @@ def golden_parity(scene, cam, max_objects):
     require(not bad, f"render vs golden below {GOLDEN_GATE_DB} dB: {bad}")
 
 
-def check_bop_tree(out_root: Path, name: str, scene_id: int, n_frames: int, n_obj: int):
+def check_bop_tree(out_root: Path, name: str, scene_id: int, n_frames: int, n_obj: int,
+                   n_models: int | None = None):
     """The BOP tree of one scene: JSONs with one entry per frame and one PNG
-    per modality per frame; images non-trivial."""
+    per modality per frame; images non-trivial.  ``n_models``: the models
+    exported for the dataset, when a scene holds fewer objects than that."""
     import numpy as np
 
     base = out_root / name
     scene = base / "train" / f"{scene_id:06d}"
     require((base / "camera.json").exists(), "camera.json missing")
     minfo = json.loads((base / "models" / "models_info.json").read_text())
-    require(len(minfo) == n_obj, minfo.keys())
+    require(len(minfo) == (n_obj if n_models is None else n_models), minfo.keys())
     gt = json.loads((scene / "scene_gt.json").read_text())
     cam = json.loads((scene / "scene_camera.json").read_text())
     require(sorted(map(int, gt)) == list(range(n_frames)), sorted(gt))
@@ -869,11 +910,305 @@ def training_main_path(tmp: Path, device, card: str, profile_steps: bool):
     return launches
 
 
+def smoke_assets(data: Path):
+    """The smoke dataset's environment and its six objects as ``Asset``s."""
+    from pegasus_tpu_torch.assets.registry import Asset
+    from pegasus_tpu_torch.testing import SMOKE_ENV, SMOKE_OBJECTS
+
+    env = Asset(OBJECT_NAME=SMOKE_ENV[0], ID=SMOKE_ENV[1], TYPE="environment",
+                dataset_path=str(data))
+    return env, [Asset(OBJECT_NAME=n, ID=i, dataset_path=str(data)) for n, i in SMOKE_OBJECTS]
+
+
+def rest_gates(label, pos, rot, linvel, start_pos, start_rot, dynamic, rest_share: float = 1.0):
+    """Gates on a recorded drop.  pos / rot / linvel: [..., T, B, 3 or 4]
+    with the step axis third from last; start_pos / start_rot: [..., B, 3 or
+    4]; dynamic: [B] bool.  Every state finite, the static bodies where they
+    started at every step, no dynamic body below SINK_LIMIT, and at the last
+    step at least ``rest_share`` of the dynamic bodies (all of them by
+    default) slower than REST_LINVEL.  Returns (lowest z, largest last-step
+    |linvel|, share at rest)."""
+    import torch
+
+    require(all(bool(torch.isfinite(x).all()) for x in (pos, rot, linvel)), f"{label}: non-finite state")
+    static = ~dynamic
+    require(torch.equal(pos[..., static, :], start_pos[..., None, static, :].expand_as(pos[..., static, :]))
+            and torch.equal(rot[..., static, :], start_rot[..., None, static, :].expand_as(rot[..., static, :])),
+            f"{label}: a static body moved")
+    low = float(pos[..., dynamic, 2].min())
+    require(low > SINK_LIMIT, f"{label}: an object sank to z = {low}")
+    speeds = torch.linalg.vector_norm(linvel[..., -1, dynamic, :], dim=-1)
+    speed, share = float(speeds.max()), float((speeds < REST_LINVEL).float().mean())
+    require(share >= rest_share,
+            f"{label}: {share:.4f} of the objects at rest at the last step (largest |linvel| {speed})")
+    return low, speed, share
+
+
+def physics_on_card(data: Path, out: Path, device, card: str, large_batch: bool) -> None:
+    """Phase 9: the smoke scene's drop on the card, replayed against op by
+    op (bitwise), against the CPU before first contact, the rest gates, and
+    the timings of one scene and of ``simulate_variants``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pegasus_tpu_torch.pegasus import PEGASUS
+    from pegasus_tpu_torch.physics import rigid_body as rb
+
+    env, objs = smoke_assets(data)
+
+    def dropped(dev, name):
+        peg = PEGASUS(
+            dataset_path=str(data), env_dataset_path=str(data), urdf_asset_folder=str(data / "urdf"),
+            gs_env_list=[env], gs_object_list=objs, mode="static", render_height=HEIGHT,
+            render_width=WIDTH, simulation_steps=SIM_STEPS, dataset_base_path=str(out), seed=3,
+            QUIET=True, device=dev,
+        )
+        t0 = time.perf_counter()
+        peg.init_bullet([env], objs, name, 1, len(objs), len(objs), random=False)
+        return peg, time.perf_counter() - t0
+
+    peg, first_s = dropped(device, "smoke_physics")  # captures the step
+    _, scene_s = dropped(device, "smoke_physics_again")  # replays the cached capture
+    require(peg.trajectory.num_steps == SIM_STEPS and peg.trajectory.num_bodies == 1 + len(objs),
+            (peg.trajectory.num_steps, peg.trajectory.num_bodies))
+    engine = peg.py_engine
+    params, state0 = engine._build()
+    kw = dict(n_steps=SIM_STEPS, dt=engine.dt, gravity=engine.gravity,
+              heightfield=engine.heightfield, device=device)
+    batch0 = rb.RigidBodyState(*(t[None] for t in (state0.pos, state0.rot, state0.linvel, state0.angvel)))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, (time.perf_counter() - t0) * 1e3 / SIM_STEPS
+
+    (replayed, _), replay_ms = timed(lambda: rb.simulate_batch(params, batch0, **kw))
+    (eager, _), eager_ms = timed(lambda: rb.simulate_batch_eager(params, batch0, **kw))
+    (replayed2, _), replay_ms2 = timed(lambda: rb.simulate_batch(params, batch0, **kw))
+    for a, b in ((replayed, eager), (replayed2, eager)):
+        require(torch.equal(a.packed(), b.packed()),
+                f"replayed and op-by-op steps differ: max |diff| {float((a.packed() - b.packed()).abs().max())}")
+    recorded = torch.tensor(peg.trajectory.times_t, dtype=torch.float32).transpose(0, 1)
+    require(torch.equal(recorded, replayed.pos[0, :, :recorded.shape[1]].cpu()),
+            "init_bullet's trajectory is not the replayed drop")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        rb.simulate_batch_eager(params, batch0, **{**kw, "n_steps": 5})
+        torch.cuda.synchronize()
+    launch_keys = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
+    launches = sum(a.count for a in prof.key_averages() if a.key in launch_keys) / 5
+
+    dynamic = (params.inv_mass > 0) & params.body_mask
+    # the rest gates, on the same drop continued to SETTLE_STEPS (the graph
+    # replays for as long as asked): at step 310 of this scene one cup still
+    # slides at 0.70 m/s, in the reference's recorded trajectory too
+    (settled, _), _ = timed(lambda: rb.simulate_batch(params, batch0, **{**kw, "n_steps": SETTLE_STEPS}))
+    require(torch.equal(settled.packed()[:, :SIM_STEPS], replayed.packed()), "the longer drop starts differently")
+    low, speed, _ = rest_gates("physics", settled.pos[0], settled.rot[0], settled.linvel[0],
+                               state0.pos, state0.rot, dynamic)
+    speed_310 = float(torch.linalg.vector_norm(replayed.linvel[0, -1, dynamic], dim=-1).max())
+
+    # the same drop on the CPU, op by op.  Objects that spawn overlapping
+    # are in contact from step 0; an object still in free fall has no
+    # angular and no sideways velocity, and until its first contact the
+    # card must agree with the CPU closely
+    t0 = time.perf_counter()
+    cpu, _ = rb.simulate_batch_eager(params.to("cpu"), batch0.to("cpu"),
+                                     **{**kw, "device": "cpu", "heightfield": engine.heightfield.to("cpu")})
+    cpu_s = time.perf_counter() - t0
+    touched = (cpu.angvel[0].abs().amax(dim=-1) > 0) | (cpu.linvel[0][..., :2].abs().amax(dim=-1) > 0)  # [T, B]
+    free_steps = [int(torch.nonzero(touched[:, b])[0]) if bool(touched[:, b].any()) else SIM_STEPS
+                  for b in range(1, 1 + len(objs))]
+    require(max(free_steps) >= 20, f"no object falls freely for 20 steps: {free_steps}")
+    pre_err = max(
+        float((getattr(replayed, f)[0, :n, b].cpu() - getattr(cpu, f)[0, :n, b]).abs().max())
+        for f in ("pos", "rot", "linvel", "angvel") for b, n in enumerate(free_steps, start=1) if n > 0)
+    require(pre_err <= PRE_CONTACT_ATOL, f"card vs CPU before contact: {pre_err}")
+    step_err = float((replayed.packed()[0, 0].cpu() - cpu.packed()[0, 0]).abs().max())
+    end_err = float((replayed.pos[0, -1].cpu() - cpu.pos[0, -1]).abs().max())
+    print(f"physics: {SIM_STEPS} steps, {1 + len(objs)} bodies of {params.inv_mass.shape[0]} slots, "
+          f"replayed == op by op bitwise; {replay_ms:.4f} / {replay_ms2:.4f} ms/step replayed, "
+          f"{eager_ms:.4f} ms/step op by op, {launches:.1f} kernel launches per step op by op; "
+          f"init_bullet {first_s:.3f} s with the capture, {scene_s:.3f} s per scene after; "
+          f"card vs CPU max |diff| {pre_err:.3e} over the free-fall steps {free_steps} of the six objects "
+          f"(first step, with contacts, {step_err:.3e}; last step's positions {end_err:.3e}; CPU run "
+          f"{cpu_s:.2f} s); lowest z {low:.4f}, largest |linvel| {speed_310:.4f} at step {SIM_STEPS} and "
+          f"{speed:.4f} at step {SETTLE_STEPS} card={card}", flush=True)
+
+    # simulate_variants: V re-drops of that scene as one program
+    import numpy as np
+
+    n_obj = len(objs)
+    for n_variants in (PHYSICS_VARIANTS,) + ((PHYSICS_VARIANTS_LARGE,) if large_batch else ()):
+        # the capturing call allocates what one V-wide step needs; later
+        # calls replay inside the graph's own pool, which the allocator's
+        # peak of allocated bytes no longer sees, so the peak is read over
+        # the capture
+        rb.clear_step_programs()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        engine.simulate_variants(n_variants, seed=0)  # captures the V-wide step
+        torch.cuda.synchronize()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        reserved_gib = torch.cuda.memory_reserved() / 2**30
+        t0 = time.perf_counter()
+        v_pos, v_rot = engine.simulate_variants(n_variants, seed=1)
+        v_s = time.perf_counter() - t0
+        require(v_pos.shape == (n_variants, SIM_STEPS, params.inv_mass.shape[0], 3), v_pos.shape)
+        require(np.isfinite(v_pos).all() and np.isfinite(v_rot).all(), "non-finite variant trajectory")
+        require(v_pos[:, :, 1:1 + n_obj, 2].min() > SINK_LIMIT, "a variant's object sank")
+        require(np.abs(v_pos[:, :, 0]).max() == 0.0, "a variant's environment moved")
+        print(f"simulate_variants({n_variants}): {v_s:.3f} s ({n_variants / v_s:.2f} scenes/s, "
+              f"{1e3 * v_s / SIM_STEPS:.4f} ms/step, host copies of the trajectories included), "
+              f"peak device memory {peak_gib:.3f} GiB allocated over the capturing call, "
+              f"{reserved_gib:.3f} GiB reserved after it card={card}", flush=True)
+    rb.clear_step_programs()
+    torch.cuda.empty_cache()
+
+
+def generation_with_physics(data: Path, out: Path, device, card: str) -> int:
+    """Phase 10: ``run_generation`` drops, renders and writes one static and
+    one dynamic scene of one dataset; returns the forward kernel's launches."""
+    from pegasus_tpu_torch.config import GenerationConfig
+    from pegasus_tpu_torch.eval import check_bop_dataset
+    from pegasus_tpu_torch.generate import run_generation
+    from pegasus_tpu_torch.ops import rasterize_cuda
+
+    env, objs = smoke_assets(data)
+    name = "smoke_generate"
+
+    def config(mode, num_scenes, num_cameras, seed):
+        return GenerationConfig(
+            dataset_path=str(data), env_dataset_path=str(data), urdf_asset_folder=str(data / "urdf"),
+            dataset_base_path=str(out), dataset_name=name, num_scenes=num_scenes,
+            min_num_objects=3, max_num_objects=6, mode=mode, render_width=WIDTH,
+            render_height=HEIGHT, num_cameras=num_cameras, num_camera_interpolation_steps=4,
+            camera_trajectory_mode="random", render_data_points=list(MODALITIES),
+            simulation_steps=SIM_STEPS, save_video=False, seed=seed,
+        )
+
+    rasterize_cuda.composite_tiles.launches = 0
+    # scene 1 static; the second call resumes past it and adds scene 2, dynamic
+    static = run_generation(config("static", 1, 10, 3), [env], objs, device=device)
+    dynamic = run_generation(config("dynamic", 2, 2, 4), [env], objs, device=device)
+    launches = rasterize_cuda.composite_tiles.launches
+    records = static.records + dynamic.records
+    require([r["scene_id"] for r in records] == [1, 2], records)
+    require([r["frames"] for r in records] == [40, 8], records)
+    require(launches == 48, f"composite_tiles launched {launches} times for 48 frames")
+    again = run_generation(config("dynamic", 2, 2, 4), [env], objs, device=device)
+    require(not again.records and rasterize_cuda.composite_tiles.launches == launches,
+            "a resumed run rendered again")
+    lines = (out / name / "generation_stats.jsonl").read_text().splitlines()
+    require(len(lines) == 2, f"{len(lines)} stats records")
+    for rec in records:
+        require(3 <= rec["n_objects"] <= 6, rec)
+        check_bop_tree(out, name, rec["scene_id"], rec["frames"], rec["n_objects"], n_models=len(objs))
+        require((out / name / "train" / f"{rec['scene_id']:06d}" / "scene_gt_info.json").exists(),
+                "scene_gt_info.json missing")
+    report = check_bop_dataset(out, name)
+    require(report["ok"], report["errors"])
+    for rec, mode in zip(records, ("static", "dynamic")):
+        stages = {k: rec[f"t_{k}"] for k in ("physics", "setup", "render", "finalize")}
+        shares = {k: round(v / rec["seconds"], 4) for k, v in stages.items()}
+        print(f"scene loop {mode} scene {rec['scene_id']}: {rec['frames']} frames, "
+              f"{rec['n_objects']} objects, {rec['splats']} splats, {rec['seconds']:.3f} s "
+              f"({rec['frames_per_s']:.3f} frames/s with physics, setup and PNG writes); "
+              f"seconds {json.dumps({k: round(v, 4) for k, v in stages.items()})} "
+              f"shares {json.dumps(shares)} card={card}", flush=True)
+    return launches
+
+
+def scene_variants(device, card: str) -> int:
+    """Phase 11: ``generate_scene_variants`` on a 210k-splat template;
+    returns the forward kernel's launches."""
+    import numpy as np
+    import torch
+
+    from pegasus_tpu_torch.ops import rasterize_cuda
+    from pegasus_tpu_torch.parallel.scene_batch import generate_scene_variants
+    from pegasus_tpu_torch.physics import rigid_body as rb
+    from pegasus_tpu_torch.scene.composition import SceneTemplate
+    from pegasus_tpu_torch.testing import make_box_cloud, make_plane_cloud
+
+    rng = np.random.default_rng(7)
+    half = (0.06, 0.06, 0.03)
+    env = make_plane_cloud(rng, n=150_000, size=2.0, device=device)
+    objs = [make_box_cloud(rng, n=10_000, half_extents=half, object_id=i + 1,
+                           rgb=((0.2 + 0.1 * i) % 1.0, 0.5, (0.9 - 0.1 * i) % 1.0), device=device)
+            for i in range(6)]
+    template = SceneTemplate.build(env, objs)
+    b = template.num_bodies
+    # box bodies: the 8 corners and 6 face centres as collision points,
+    # 0.2 kg, a solid box's inertia
+    signs = np.array([[sx, sy, sz] for sx in (-1, 1) for sy in (-1, 1) for sz in (-1, 1)], np.float32)
+    pts = np.concatenate([signs * half, np.diag(half), -np.diag(half)]).astype(np.float32)
+    mass, ext = 0.2, 2 * np.asarray(half)
+    inertia = mass / 12.0 * np.array([ext[1]**2 + ext[2]**2, ext[0]**2 + ext[2]**2, ext[0]**2 + ext[1]**2])
+    inv_mass = np.array([0.0] + [1.0 / mass] * (b - 1), np.float32)
+    inv_inertia = np.zeros((b, 3), np.float32)
+    inv_inertia[1:] = 1.0 / inertia
+    t = lambda a: torch.tensor(a, device=device)
+    params = rb.RigidBodyParams(
+        inv_mass=t(inv_mass), inv_inertia=t(inv_inertia),
+        points=t(np.tile(pts[None], (b, 1, 1))), point_mask=t(np.ones((b, len(pts)), bool)),
+        radius=t(np.full(b, np.linalg.norm(half), np.float32)),
+        friction=t(np.full(b, 0.5, np.float32)), restitution=t(np.zeros(b, np.float32)),
+        body_mask=t(np.ones(b, bool)), half_extents=t(np.tile(np.asarray(half, np.float32), (b, 1))),
+    )
+    cam = bench_cameras(device)["orbit"]
+    k = b
+
+    def run(seed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = generate_scene_variants(template, params, cam, SCENE_VARIANTS, n_steps=VARIANT_STEPS,
+                                      seed=seed, max_objects=k, device=device)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    run(0)  # captures the V-wide step
+    rasterize_cuda.composite_tiles.launches = 0
+    res, seconds = run(1)
+    launches = rasterize_cuda.composite_tiles.launches
+    require(launches == SCENE_VARIANTS, f"{launches} launches for {SCENE_VARIANTS} variants")
+    require(res.rgb.shape == (SCENE_VARIANTS, HEIGHT, WIDTH, 3)
+            and res.seg_weights.shape == (SCENE_VARIANTS, HEIGHT, WIDTH, k), res.rgb.shape)
+    require(all(bool(torch.isfinite(x).all()) for x in res), "non-finite variant output")
+    require(float((res.rgb[0] - res.rgb[1]).abs().max()) > 0.01, "two variants rendered alike")
+    require(float(res.seg_weights[..., 1:].sum(dim=(1, 2, 3)).min()) > 0, "a variant shows no object")
+    # the rest gates on the whole recorded drop of the same seed
+    gen = torch.Generator().manual_seed(1)
+    from pegasus_tpu_torch.parallel.scene_batch import variant_start_states
+
+    states = variant_start_states(SCENE_VARIANTS, b, generator=gen, device=device)
+    traj, final = rb.simulate_batch(params, states, n_steps=VARIANT_STEPS, device=device)
+    require(torch.equal(final.pos, res.final_pos) and torch.equal(final.rot, res.final_rot),
+            "generate_scene_variants' rest poses are not the seed's drop")
+    low, speed, share = rest_gates("scene variants", traj.pos, traj.rot, traj.linvel, states.pos,
+                                   states.rot, (params.inv_mass > 0) & params.body_mask,
+                                   rest_share=VARIANT_REST_SHARE)
+    print(f"generate_scene_variants: V = {SCENE_VARIANTS}, {VARIANT_STEPS} steps, {WIDTH}x{HEIGHT}, "
+          f"{template.cloud.num_splats} splats, K = {k}: {seconds:.3f} s ({SCENE_VARIANTS / seconds:.3f} "
+          f"variants/s), {launches} forward-kernel launches; lowest z {low:.4f}, last |linvel| "
+          f"{speed:.4f}, {share:.4f} of {SCENE_VARIANTS * (b - 1)} objects at rest card={card}", flush=True)
+    rb.clear_step_programs()
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also run phase 6 (frames/s with and without PNG writes, profiler trace)")
+                        help="also run phase 6 (frames/s with and without PNG writes, profiler trace), "
+                             "a profiler trace of 20 training steps and simulate_variants(1000)")
+    parser.add_argument("--from-phase", type=int, default=1, metavar="N",
+                        help="skip phases 3 to N - 1 (N > 3); such a run prints no result lines")
     args = parser.parse_args()
+    t_start = time.perf_counter()
+    whole = args.from_phase <= 3
     import torch
 
     if not torch.cuda.is_available():
@@ -900,15 +1235,16 @@ def main() -> int:
 
     # -- phase 3: kernel vs plain -------------------------------------------------
     max_objects = len(SMOKE_OBJECTS) + 1  # render_frame's K for six objects
-    scenes = bench_scenes(dev)
-    cams = bench_cameras(dev)
-    max_abs_err, timings = kernel_vs_plain(scenes, cams, max_objects)
+    if whole:
+        scenes = bench_scenes(dev)
+        cams = bench_cameras(dev)
+        max_abs_err, timings = kernel_vs_plain(scenes, cams, max_objects)
 
-    # -- phase 4: full render vs golden ---------------------------------------------
-    golden_parity(scenes["210k"], cams["orbit"], max_objects)
-    scene_210k = scenes["210k"]
-    del scenes
-    torch.cuda.empty_cache()
+        # -- phase 4: full render vs golden ---------------------------------------------
+        golden_parity(scenes["210k"], cams["orbit"], max_objects)
+        scene_210k = scenes["210k"]
+        del scenes
+        torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory(prefix="pegasus_smoke_") as tmp:
         # -- phase 5: the generation main path ------------------------------------------
@@ -916,52 +1252,68 @@ def main() -> int:
         build_synthetic_dataset(data, object_names=[n for n, _ in SMOKE_OBJECTS],
                                 env_splats=150_000, obj_splats=10_000)
         print(f"png writer: {'native' if _load_native() is not None else 'imageio'}", flush=True)
-        rasterize_cuda.composite_tiles.launches = 0
-        peg, n_static, host_static = run_scene(data, out, "smoke_static", "static", 10, 4, dev)
-        _, n_dynamic, host_dynamic = run_scene(data, out, "smoke_dynamic", "dynamic", 2, 4, dev)
-        gen_launches = rasterize_cuda.composite_tiles.launches
-        n_frames = n_static + n_dynamic
-        require((n_static, n_dynamic) == (40, 8), (n_static, n_dynamic))
-        require(gen_launches == n_frames,
-                f"composite_tiles launched {gen_launches} times for {n_frames} frames")
-        print(f"main path: static {n_static} frames {n_static / host_static['wall_s']:.3f} frames/s, "
-              f"dynamic {n_dynamic} frames {n_dynamic / host_dynamic['wall_s']:.3f} frames/s "
-              f"(wall, incl. PNG writes; 640x480, all modalities) "
-              f"readback_bytes={peg.last_render_stats['readback_bytes']} "
-              f"fetch_stall_s={peg.last_render_stats['fetch_stall_s']} card={card}", flush=True)
-        print(f"main path host: static {json.dumps(host_static)} dynamic {json.dumps(host_dynamic)} "
-              f"cpus={len(os.sched_getaffinity(0))}", flush=True)
-        stage_times(peg, card)
-        # -- phase 6 ------------------------------------------------------------------------
-        if args.profile:
-            profile_main_path(data, out, dev, card)
-        del peg
-        torch.cuda.empty_cache()
+        if whole:
+            rasterize_cuda.composite_tiles.launches = 0
+            peg, n_static, host_static = run_scene(data, out, "smoke_static", "static", 10, 4, dev)
+            _, n_dynamic, host_dynamic = run_scene(data, out, "smoke_dynamic", "dynamic", 2, 4, dev)
+            gen_launches = rasterize_cuda.composite_tiles.launches
+            n_frames = n_static + n_dynamic
+            require((n_static, n_dynamic) == (40, 8), (n_static, n_dynamic))
+            require(gen_launches == n_frames,
+                    f"composite_tiles launched {gen_launches} times for {n_frames} frames")
+            print(f"main path: static {n_static} frames {n_static / host_static['wall_s']:.3f} frames/s, "
+                  f"dynamic {n_dynamic} frames {n_dynamic / host_dynamic['wall_s']:.3f} frames/s "
+                  f"(wall, incl. PNG writes; 640x480, all modalities) "
+                  f"readback_bytes={peg.last_render_stats['readback_bytes']} "
+                  f"fetch_stall_s={peg.last_render_stats['fetch_stall_s']} card={card}", flush=True)
+            print(f"main path host: static {json.dumps(host_static)} dynamic {json.dumps(host_dynamic)} "
+                  f"cpus={len(os.sched_getaffinity(0))}", flush=True)
+            stage_times(peg, card)
+            # -- phase 6 ------------------------------------------------------------------------
+            if args.profile:
+                profile_main_path(data, out, dev, card)
+            del peg
+            torch.cuda.empty_cache()
 
-        # -- phase 7: backward kernel vs plain ----------------------------------------------
-        from pegasus_tpu_torch.ops.binning import bin_splats
-        from pegasus_tpu_torch.ops.projection import project_gaussians
+            # -- phase 7: backward kernel vs plain ----------------------------------------------
+            from pegasus_tpu_torch.ops.binning import bin_splats
+            from pegasus_tpu_torch.ops.projection import project_gaussians
 
-        bins = bin_splats(project_gaussians(train_box_cloud(dev), train_camera(dev)),
-                          TRAIN_SIZE, TRAIN_SIZE)
-        bwd_train = backward_vs_plain("train 150k box 512x512 K=1", bins, TRAIN_SIZE, TRAIN_SIZE, 1, card)
-        bins = bin_splats(project_gaussians(scene_210k, cams["orbit"]), WIDTH, HEIGHT)
-        bwd_210k = backward_vs_plain("210k orbit 640x480 K=7", bins, WIDTH, HEIGHT, max_objects, card)
-        del bins, scene_210k
-        stress = [long_segment_stress(dev, k, card) for k in (1, max_objects)]
-        torch.cuda.empty_cache()
+            bins = bin_splats(project_gaussians(train_box_cloud(dev), train_camera(dev)),
+                              TRAIN_SIZE, TRAIN_SIZE)
+            bwd_train = backward_vs_plain("train 150k box 512x512 K=1", bins, TRAIN_SIZE, TRAIN_SIZE, 1, card)
+            bins = bin_splats(project_gaussians(scene_210k, cams["orbit"]), WIDTH, HEIGHT)
+            bwd_210k = backward_vs_plain("210k orbit 640x480 K=7", bins, WIDTH, HEIGHT, max_objects, card)
+            del bins, scene_210k
+            stress = [long_segment_stress(dev, k, card) for k in (1, max_objects)]
+            torch.cuda.empty_cache()
 
-        # -- phase 8: the training main path ----------------------------------------------------
-        train_launches = training_main_path(Path(tmp), dev, card, args.profile)
+            # -- phase 8: the training main path ----------------------------------------------------
+            train_launches = training_main_path(Path(tmp), dev, card, args.profile)
 
+        # -- phase 9: physics on the card ---------------------------------------------------------
+        if args.from_phase <= 9:
+            physics_on_card(data, out, dev, card, args.profile)
+        # -- phase 10: the generation main path with physics --------------------------------------
+        if args.from_phase <= 10:
+            loop_launches = generation_with_physics(data, out, dev, card)
+        # -- phase 11: scene variants ---------------------------------------------------------------
+        variant_launches = scene_variants(dev, card)
+
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
+    if not whole:
+        print(f"partial run from phase {args.from_phase}: no result lines", flush=True)
+        return 0
     print(json.dumps({"kernels": [{
         "name": "composite_tiles",
         "route": "cuda",
         "source": "pegasus_tpu_torch/csrc/composite_tiles.cu",
         "replaces": "pegasus_tpu/ops/rasterize_pallas.py:531",
-        "launches": gen_launches + train_launches["forward"],
+        "launches": gen_launches + train_launches["forward"] + loop_launches + variant_launches,
         "launches_generation": gen_launches,
         "launches_training": train_launches["forward"],
+        "launches_scene_loop": loop_launches,
+        "launches_scene_variants": variant_launches,
         "max_abs_err": max(max_abs_err, bwd_train["fwd_max_abs_err"], bwd_210k["fwd_max_abs_err"],
                            *(f for f, _ in stress)),
         "chunk_entries": CHUNK_ENTRIES,

@@ -5,13 +5,15 @@ each module here has its counterpart at the same relative path in
 ``pegasus_tpu``, which the tests hold it against.  It imports ``torch`` and
 never ``jax``, ``flax``, ``optax``, ``orbax`` or ``pegasus_tpu``.
 
-What runs: a recorded physics trajectory (JSON) -> ``SceneTemplate`` build
-and posing -> per frame project / exact tile binning / the hand-written
+What runs: the batched rigid-body drop (``physics/``, plain torch ops; on
+the card one step is captured into a CUDA graph and replayed) or a recorded
+physics trajectory (JSON) -> ``SceneTemplate`` build and posing -> per frame
+project / exact tile binning / the hand-written
 CUDA tile compositor (``csrc/composite_tiles.cu``) -> every modality ->
 packed bytes -> the BOP writer.  Training (``training/trainer.py``) runs the
 same compositor under ``torch.autograd`` with its hand-written backward
-(``csrc/composite_tiles_bwd.cu``).  Physics (``init_bullet``) waits for its
-own port.
+(``csrc/composite_tiles_bwd.cu``).  ``generate.py`` is the scene loop and the
+CLI (``python -m pegasus_tpu_torch.generate``).
 
 Float32 matrix products must run in full float32 to compare with the
 reference at float32 tolerances.  That is PyTorch's default for matmuls

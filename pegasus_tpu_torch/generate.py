@@ -1,0 +1,236 @@
+"""Top-level dataset generation loop, as a library + CLI.
+
+Port of ``pegasus_tpu/generate.py``: models export, per scene physics ->
+setup -> render -> BOP, then gt-info and scene-wise -> NDDS conversion,
+with per-scene retry, resume from finished scenes and structured
+throughput stats.  Everything runs on one torch device (``device``, default
+the card); the reference's scene-data-parallel path over a device mesh
+(``mesh=`` / ``--sharded``) is not ported and raises (ROADMAP M11).
+
+Usage:
+    from pegasus_tpu_torch.config import GenerationConfig
+    from pegasus_tpu_torch.generate import run_generation
+    run_generation(config, env_list, obj_list)
+
+or:  python -m pegasus_tpu_torch.generate --config config.json
+"""
+
+from __future__ import annotations
+
+import time
+from pathlib import Path
+from typing import List, Optional
+
+import numpy as np
+
+from pegasus_tpu_torch.assets.registry import Asset
+from pegasus_tpu_torch.config import GenerationConfig
+from pegasus_tpu_torch.device import DEFAULT_DEVICE
+from pegasus_tpu_torch.io.bop_writer import (
+    calculate_gt_info,
+    convert_scenewise_to_imagewise_ndds,
+    write_models,
+)
+from pegasus_tpu_torch.io.mesh import load_mesh
+from pegasus_tpu_torch.pegasus import PEGASUS
+from pegasus_tpu_torch.utils.observability import (
+    SceneStats,
+    completed_scene_ids,
+    retry_scene,
+    stage_timer,
+)
+
+
+SHARDED_MESSAGE = (
+    "scene-data-parallel generation over several devices (mesh= / --sharded) "
+    "is not ported yet: ROADMAP M11"
+)
+
+
+def run_generation(
+    config: GenerationConfig,
+    env_list: List[Asset],
+    obj_list: List[Asset],
+    pegasus: Optional[PEGASUS] = None,
+    mesh=None,
+    device=DEFAULT_DEVICE,
+) -> SceneStats:
+    if mesh is not None:
+        raise NotImplementedError(SHARDED_MESSAGE)
+    out_root = Path(config.dataset_base_path)
+    dataset_dir = out_root / config.dataset_name
+    dataset_dir.mkdir(parents=True, exist_ok=True)
+    config.save(dataset_dir / "generation_config.json")
+
+    if pegasus is None:
+        pegasus = PEGASUS(
+            dataset_path=config.dataset_path,
+            env_dataset_path=config.env_dataset_path,
+            urdf_asset_folder=config.urdf_asset_folder
+            or str(Path(config.dataset_path) / "urdf"),
+            gs_env_list=env_list,
+            gs_object_list=obj_list,
+            mode=config.mode,
+            camera_trajectory_mode=config.camera_trajectory_mode,
+            render_height=config.render_height,
+            render_width=config.render_width,
+            num_cameras=config.num_cameras,
+            simulation_steps=config.simulation_steps,
+            num_camera_interpolation_steps=config.num_camera_interpolation_steps,
+            dataset_base_path=str(out_root),
+            background=config.background,
+            seed=config.seed,
+            splat_budget=config.splat_budget,
+            unit_scale=config.unit_scale,
+            compact_readback=config.compact_readback,
+            device=device,
+        )
+
+    # models once, keyed by real IDs (reference: pegasus.py:510-512)
+    models = {
+        obj.ID: load_mesh(obj.urdf_obj_path)
+        for obj in obj_list
+        if Path(obj.urdf_obj_path).exists()
+    }
+    if models:
+        write_models(models, dataset_dir / "models", config.unit_scale)
+
+    stats = SceneStats(path=str(dataset_dir / "generation_stats.jsonl"))
+    done = completed_scene_ids(out_root, config.dataset_name) if config.resume else set()
+
+    n_frames = config.num_cameras * config.num_camera_interpolation_steps
+
+    def one_scene(scene_id: int) -> None:
+        t0 = time.perf_counter()
+        timers: dict = {}
+        with stage_timer(timers, "physics"):
+            pegasus.init_bullet(
+                env_list=env_list,
+                obj_list=obj_list,
+                dataset_name=config.dataset_name,
+                scene_id=scene_id,
+                min_num_objects=config.min_num_objects,
+                max_num_objects=config.max_num_objects,
+            )
+        with stage_timer(timers, "setup"):
+            pegasus.init(dataset_name=config.dataset_name, scene_id=scene_id)
+            pegasus.init_start_position()
+        with stage_timer(timers, "render"):
+            pegasus.generate_dataset(
+                data_points=config.render_data_points,
+                save_bop=True,
+                save_video=config.save_video,
+            )
+        with stage_timer(timers, "finalize"):
+            pegasus.save2bop()
+        dt = time.perf_counter() - t0
+        stats.record(
+            scene_id,
+            frames=n_frames,
+            seconds=dt,
+            frames_per_s=n_frames / dt,
+            splats=int(pegasus.template.cloud.num_splats),
+            n_objects=len(pegasus.bullet_ids),
+            env=pegasus.selected_env_name,
+            object_ids=pegasus.selected_object_ids,
+            **{f"t_{k}": v for k, v in timers.items()},
+            # device->host transfer accounting from the render loop
+            # (bytes fetched + time blocked on fetches)
+            **getattr(pegasus, "last_render_stats", {}),
+        )
+
+    for scene_id in range(1, config.num_scenes + 1):
+        if scene_id in done:
+            continue
+        retry_scene(one_scene, scene_id)
+
+    if config.convert_scenewise_to_imagewise:
+        scene_ids = sorted(
+            completed_scene_ids(out_root, config.dataset_name)
+        )
+        calculate_gt_info(out_root, config.dataset_name, scene_ids)
+        n = len(scene_ids)
+        split = int(np.round(0.8 * n))
+        train_ids = ",".join(str(s) for s in scene_ids[:split])
+        test_ids = ",".join(str(s) for s in scene_ids[split:])
+        train_dir = dataset_dir / "train"
+        if train_ids:
+            convert_scenewise_to_imagewise_ndds(
+                str(train_dir), str(dataset_dir / "train_ndds"), train_ids
+            )
+        if test_ids:
+            convert_scenewise_to_imagewise_ndds(
+                str(train_dir), str(dataset_dir / "test_ndds"), test_ids
+            )
+
+    print(f"[pegasus-tpu-torch] generation summary: {stats.summary()}")
+    return stats
+
+
+def write_targets_bop19(dataset_root, dataset_name: str, out_name: str = "test_targets_bop19.json") -> None:
+    """BOP-19 targets file over the generated scenes."""
+    import json
+
+    root = Path(dataset_root) / dataset_name
+    targets = []
+    for scene_dir in sorted((root / "train").iterdir()):
+        gt = scene_dir / "scene_gt.json"
+        if not gt.exists():
+            continue
+        scene_id = int(scene_dir.name)
+        data = json.loads(gt.read_text())
+        for fid, entries in data.items():
+            counts: dict = {}
+            for e in entries:
+                counts[e["obj_id"]] = counts.get(e["obj_id"], 0) + 1
+            for obj_id, c in counts.items():
+                targets.append(
+                    {
+                        "im_id": int(fid),
+                        "inst_count": c,
+                        "obj_id": int(obj_id),
+                        "scene_id": scene_id,
+                    }
+                )
+    with open(root / out_name, "w") as f:
+        json.dump(targets, f, indent=1)
+
+
+def main(argv=None) -> None:
+    import argparse
+
+    from pegasus_tpu_torch.assets.rosters import full_registry
+
+    parser = argparse.ArgumentParser(description="PEGASUS dataset generation (PyTorch + CUDA port)")
+    parser.add_argument("--config", required=True, help="GenerationConfig JSON")
+    parser.add_argument("--envs", nargs="*", help="environment class names")
+    parser.add_argument("--objects", nargs="*", help="object class names")
+    parser.add_argument(
+        "--sharded", action="store_true",
+        help="scene-data-parallel generation over all devices (not ported: raises)",
+    )
+    parser.add_argument(
+        "--device", default=DEFAULT_DEVICE,
+        help="torch device (default: the card; 'cpu' runs the plain torch path)",
+    )
+    args = parser.parse_args(argv)
+
+    config = GenerationConfig.load(args.config)
+    registry = full_registry(config.dataset_path, config.env_dataset_path)
+    env_list = (
+        [registry.by_class_name(n) for n in args.envs]
+        if args.envs
+        else registry.environments()
+    )
+    obj_list = (
+        [registry.by_class_name(n) for n in args.objects]
+        if args.objects
+        else registry.objects()
+    )
+    if args.sharded:
+        raise NotImplementedError(SHARDED_MESSAGE)
+    run_generation(config, env_list, obj_list, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -13,6 +13,7 @@ import torch
 from pegasus_tpu_torch.camera import Camera
 from pegasus_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from pegasus_tpu_torch.gs.cloud import GaussianCloud
+from pegasus_tpu_torch.physics.rigid_body import RigidBodyParams, RigidBodyState
 from pegasus_tpu_torch.training.trainer import GROUPS, TrainState
 
 CLOUD_FIELDS = ("xyz", "f_dc", "f_rest", "opacity", "scale", "rot", "object_id", "alive")
@@ -53,3 +54,16 @@ def train_state_from_numpy(d: dict, device=DEFAULT_DEVICE) -> TrainState:
         step=int(d["step"]),
         spatial_lr_scale=float(d["spatial_lr_scale"]),
     )
+
+
+def rigid_body_from_numpy(params: dict, state: dict, device=DEFAULT_DEVICE):
+    """(RigidBodyParams, RigidBodyState) from two {field: array} dicts, the
+    arrays keeping their dtypes (float32, bool, int32); ``num_hull_parts``
+    stays a plain int and a field left out of ``params`` takes the
+    dataclass's default."""
+    device = resolve_device(device)
+    tensor = lambda v: torch.tensor(np.asarray(v), device=device)
+    fields = {k: int(v) if k == "num_hull_parts" else tensor(v)
+              for k, v in params.items() if v is not None}
+    return (RigidBodyParams(**fields),
+            RigidBodyState(**{k: tensor(state[k]) for k in ("pos", "rot", "linvel", "angvel")}))

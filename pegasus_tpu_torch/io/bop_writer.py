@@ -1,4 +1,4 @@
-"""Copied verbatim from ``pegasus_tpu/io/bop_writer.py``; only the import lines differ.
+"""Copied verbatim from ``pegasus_tpu/io/bop_writer.py``; only the import lines differ, and ``calculate_gt_info`` reads its masks with ``io/png.py::read_png`` (no imageio).
 
 BOP-format dataset writer (+ NDDS conversion, gt-info).
 
@@ -336,7 +336,7 @@ def calculate_gt_info(dataset_root, dataset_name=None, scene_ids=None, object_li
         dataset root comes from the ``PEGASUS_PATH`` environment variable
         (reference: pegasus.py:407) and scenes are 1..num_scenes.
     """
-    import imageio.v2 as imageio
+    from pegasus_tpu_torch.io.png import read_png
 
     if isinstance(dataset_name, int):
         # reference call shape: (dataset_name, num_scenes, object_list)
@@ -368,12 +368,12 @@ def calculate_gt_info(dataset_root, dataset_name=None, scene_ids=None, object_li
                     "visib_fract": 0.0,
                 }
                 if amodal_p.exists():
-                    am = np.asarray(imageio.imread(amodal_p)) > 127
+                    am = np.asarray(read_png(amodal_p)) > 127
                     rec["px_count_all"] = int(am.sum())
                     rec["px_count_valid"] = int(am.sum())
                     rec["bbox_obj"] = _mask_bbox(am)
                 if visib_p.exists():
-                    vis = np.asarray(imageio.imread(visib_p)) > 127
+                    vis = np.asarray(read_png(visib_p)) > 127
                     rec["px_count_visib"] = int(vis.sum())
                     rec["bbox_visib"] = _mask_bbox(vis)
                 if rec["px_count_all"] > 0:

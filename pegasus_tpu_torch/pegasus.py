@@ -1,11 +1,11 @@
-"""PEGASUS orchestrator: recorded trajectory -> composition -> render -> BOP.
+"""PEGASUS orchestrator: physics -> composition -> render -> BOP export.
 
-Port of ``pegasus_tpu/pegasus.py``: the same lifecycle
-``init -> init_start_position -> generate_dataset -> save2bop`` and
-constructor vocabulary, on one torch device.  Physics is not ported yet: a
-scene replays a trajectory JSON recorded by either engine (set
-``physics_file`` and ``selected_env_name``, exactly as the reference
-allows), and ``init_bullet`` raises.
+Port of ``pegasus_tpu/pegasus.py``: the same lifecycle ``init_bullet ->
+init -> init_start_position -> generate_dataset -> save2bop`` and
+constructor vocabulary, on one torch device.  ``init_bullet`` drops a scene
+with the port's own engine (``physics/engine.py``); a scene can also replay
+a trajectory JSON recorded by either engine (set ``physics_file`` and
+``selected_env_name``, exactly as the reference allows).
 
 The frame loop replaces the reference's ``lax.map`` chunk programs: frames
 render one at a time on the current CUDA stream, each is encoded and packed
@@ -40,6 +40,7 @@ from pegasus_tpu_torch.gs.ply import load_gs_ply
 from pegasus_tpu_torch.io import colmap as colmap_io
 from pegasus_tpu_torch.io.bop_writer import BOPDatasetWriter
 from pegasus_tpu_torch.io.mesh import load_mesh
+from pegasus_tpu_torch.physics.engine import MAX_BODIES, PhysicsEngine
 from pegasus_tpu_torch.ops.render import (encode_frame, pack_frame_bytes,
                                           render_frame, unpack_frame_bytes)
 from pegasus_tpu_torch.scene.camera_trajectory import create_camera_trajectory
@@ -137,11 +138,55 @@ class PEGASUS:
 
     # -- physics -----------------------------------------------------------------
 
-    def init_bullet(self, *args, **kwargs) -> None:
-        raise NotImplementedError(
-            "physics is not ported yet (ROADMAP M9): replay a recorded "
-            "trajectory by setting `physics_file` and `selected_env_name`"
+    def init_bullet(
+        self,
+        env_list: List[Asset],
+        obj_list: List[Asset],
+        dataset_name: str,
+        scene_id: int,
+        min_num_objects: int = 1,
+        max_num_objects: int = 1,
+        random: bool = True,
+    ) -> None:
+        """Drop a random object subset onto a random environment.  The
+        draws from ``self.rng`` are the reference's, in its order:
+        environment, object count, the choice of objects, the engine's
+        seed, then one start position per object."""
+        engine_path = (
+            Path(self.dataset_base_path)
+            / dataset_name
+            / "engine"
+            / f"{scene_id:06d}_simulation_steps.json"
         )
+        if not random:
+            self.rng = np.random.default_rng(42)
+
+        min_num_objects = min(min_num_objects, len(obj_list))
+        max_num_objects = min(max_num_objects, len(obj_list))
+
+        select_env = env_list[int(self.rng.integers(0, len(env_list)))]
+        self.selected_env_name = select_env.object_name
+        n_objects = int(self.rng.integers(min_num_objects, max_num_objects + 1))
+        idx = self.rng.choice(len(obj_list), n_objects, replace=False).tolist()
+        selected = [obj_list[i] for i in idx]
+        self.selected_object_ids = [int(o.ID) for o in selected]
+
+        engine = PhysicsEngine(
+            asset_folder=self.urdf_asset_folder,
+            output_path_json=str(engine_path),
+            simulation_steps=self.simulation_steps,
+            seed=int(self.rng.integers(0, 2**31)),
+            # auto-size the body capacity: rich scenes (30 objects) must
+            # not hit the static default cap
+            max_bodies=max(MAX_BODIES, max_num_objects + 1),
+            device=self.device,
+        )
+        engine.add_object(select_env, start_pos=select_env.START_POSITION_PYBULLET)
+        for obj in selected:
+            engine.add_object(obj, start_pos=select_env.define_start_pos(self.rng))
+        self.trajectory = engine.simulate()
+        self.physics_file = engine.trajectory_path
+        self.py_engine = engine
 
     # -- per-scene setup -----------------------------------------------------------
 

@@ -1,1 +1,1 @@
-"""URDF files for the synthetic assets (the physics engine is not ported yet)."""
+"""The drop simulation: heightfield ground, batched rigid-body stepper, engine and URDF files."""

@@ -14,6 +14,10 @@ def xyzw_to_wxyz(q: torch.Tensor) -> torch.Tensor:
     return torch.cat([q[..., 3:4], q[..., 0:3]], dim=-1)
 
 
+def wxyz_to_xyzw(q: torch.Tensor) -> torch.Tensor:
+    return torch.cat([q[..., 1:4], q[..., 0:1]], dim=-1)
+
+
 def normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return q / torch.clamp(torch.linalg.vector_norm(q, dim=-1, keepdim=True), min=eps)
 

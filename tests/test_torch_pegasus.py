@@ -9,7 +9,7 @@ BOP trees must agree: JSON integers equal and floats within 1e-5 relative
 (1e-6 absolute for values near zero); rgb PNGs > 40 dB; depth within 1 mm
 wherever the rendered alpha > 0.5; each mask plane disagreeing on at most
 0.5 % of its pixels.  Also: the committed smoke trajectory, and the
-port's refusals (no CUDA, no physics, unported options).
+port's refusals (no CUDA, unported options).
 """
 
 import json
@@ -180,9 +180,13 @@ def test_refusals(recorded, tmp_path, monkeypatch):
     for option in ("publish2gui", "compact_readback"):
         with pytest.raises(NotImplementedError, match="M13"):
             PEGASUS(gs_env_list=[env], gs_object_list=objs, device="cpu", **cfg, **{option: True})
-    pegasus = PEGASUS(gs_env_list=[env], gs_object_list=objs, device="cpu", **cfg)
-    with pytest.raises(NotImplementedError, match="M9"):
-        pegasus.init_bullet([env], objs, "x", 1)
+    # physics is ported: the engine init_bullet builds takes the PEGASUS's
+    # device, so with the default device and no card it is the constructor
+    # above that refuses, and on the CPU a drop runs
+    monkeypatch.undo()
+    pegasus = PEGASUS(gs_env_list=[env], gs_object_list=objs, device="cpu", **dict(cfg, simulation_steps=4))
+    pegasus.init_bullet([env], objs, "x", 1)
+    assert pegasus.py_engine.device.type == "cpu" and pegasus.trajectory.num_steps == 4
 
 
 def test_video_streams_when_asked(recorded, tmp_path):
