@@ -84,8 +84,46 @@ Phases, each of which fails the run (nonzero exit) on any miss:
    every one) must lie still at the last step: six boxes dropped onto one
    spot pile up, and a pile sheds a box now and then.  Prints variants/s.
 
+12. the splat-sharded render: ``rasterize_splat_sharded`` (backend "cuda")
+   of the 1M plane scene at the orbit and the grazing camera, K = 7, on
+   meshes of 1, 2, 4 and 8 lanes of the card: every channel >= 60 dB and
+   max |diff| within phase 3's limit against the unsharded ``rasterize``,
+   two renders bitwise equal, one forward-kernel launch per shard; >= 40 dB
+   against the golden compositor at the 210k scene on 4 lanes; and
+   ``rasterize_splat_sharded_batch`` on a (2, 4) mesh over two scenes equal
+   to each scene's own 4-lane render.  Prints ms per frame at each lane
+   count beside the unsharded time;
+13. sharded generation: ``run_generation(mesh=)`` on a 4-lane mesh over the
+   smoke dataset, 8 static scenes of 10 x 4 frames, then (resuming) 4
+   dynamic scenes of 2 x 4: one ``simulate_batch`` per batch of 4 scenes (3
+   calls), one forward-kernel launch per written frame (352),
+   ``check_bop_tree`` and ``check_bop_dataset``, 12 stats records, a further
+   call renders and drops nothing, the dynamic scenes' poses move between
+   frames.  Prints seconds per scene and per batch stage, and scenes/s of 4
+   static scenes at 1, 2 and 4 lanes;
+14. the data-parallel train step at the training shape (150k-splat box,
+   512x512, 40,000 seed points, capacity 200,000): 4 cameras on a 4-lane
+   mesh against one ``_apply_grads`` of the mean of four single-view
+   gradients (Adam's moments and the densify statistics within one train
+   step's tolerances, the parameters too wherever |g| is above rounding),
+   four launches of each kernel per step, 20 DP steps lower the loss.
+   Prints ms per DP step beside 4 x the single step;
+15. the full-roster dress rehearsal: nine environments (40,000 splats) and
+   all 51 roster objects (4,000 splats) as synthetic assets, 16 static and
+   4 dynamic scenes of 2 x 3 frames with 3-6 objects through
+   ``run_generation(mesh=)`` on 4 lanes, the three camera modes in turn;
+   51 ``models_info`` entries, gt-info, NDDS, ``write_targets_bop19``,
+   ``check_bop_dataset`` clean, and ``score_bop19`` with the written poses
+   as estimates AR >= 0.99 (mssd and mspd exactly 1).  Prints the seconds of
+   asset building, generation and scoring.
+
+After phase 5 the compact-readback case runs the static replayed scene once
+more with and without ``compact_readback``: every PNG and JSON byte-identical;
+prints the bytes moved per frame both ways and frames/s.
+
 ``--from-phase N`` (N > 3) skips phases 3 to N - 1 while a later phase is
-worked on; such a run prints no result lines.  The last two lines of a
+worked on (12: the build, the compact-readback case and phases 12-15); such
+a run prints no result lines.  The last two lines of a
 whole run are one JSON object for the kernels and one for the device; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -389,7 +427,7 @@ def _read_png(path):
 
 
 def scene_pegasus(data: Path, out: Path, name: str, mode: str, num_cameras: int,
-                  n_interp: int, device):
+                  n_interp: int, device, compact_readback: bool = False):
     """A PEGASUS replaying the committed trajectory, set up up to
     ``init_start_position`` (the loading is not part of any timing)."""
     from pegasus_tpu_torch.assets.registry import Asset
@@ -405,7 +443,7 @@ def scene_pegasus(data: Path, out: Path, name: str, mode: str, num_cameras: int,
         mode=mode, camera_trajectory_mode="random", render_height=HEIGHT,
         render_width=WIDTH, num_cameras=num_cameras, simulation_steps=310,
         num_camera_interpolation_steps=n_interp, dataset_base_path=str(out),
-        seed=3, QUIET=True, device=device,
+        seed=3, QUIET=True, device=device, compact_readback=compact_readback,
     )
     peg.physics_file = str(TRAJECTORY)
     peg.selected_env_name = SMOKE_ENV[0]
@@ -1199,13 +1237,432 @@ def scene_variants(device, card: str) -> int:
     return launches
 
 
+def compact_readback_case(data: Path, out: Path, device, card: str) -> int:
+    """The static replayed scene of phase 5 twice, without and with
+    ``compact_readback``: every PNG and JSON byte-identical; prints the
+    bytes moved per frame both ways and frames/s.  Returns the forward
+    kernel's launches."""
+    from pegasus_tpu_torch.ops import rasterize_cuda
+
+    rasterize_cuda.composite_tiles.launches = 0
+    runs = {}
+    for name, compact in (("readback_packed", False), ("readback_compact", True)):
+        peg = scene_pegasus(data, out, name, "static", 10, 4, device, compact_readback=compact)
+        t0 = time.perf_counter()
+        peg.generate_dataset(MODALITIES, save_bop=True, save_video=False)
+        peg.save2bop()
+        runs[name] = (time.perf_counter() - t0, len(peg.viewport_cam_list), peg.last_render_stats)
+    launches = rasterize_cuda.composite_tiles.launches
+    a, b = out / "readback_packed", out / "readback_compact"
+    kinds = (".png", ".json")
+    files = sorted(p.relative_to(a) for p in a.rglob("*") if p.suffix in kinds)
+    require(files and files == sorted(p.relative_to(b) for p in b.rglob("*") if p.suffix in kinds),
+            "the two trees differ in files")
+    differ = [str(f) for f in files if (a / f).read_bytes() != (b / f).read_bytes()]
+    require(not differ, f"compact readback changed {differ[:5]}")
+    (s0, n, st0), (s1, _, st1) = runs["readback_packed"], runs["readback_compact"]
+    require(launches == 2 * n, f"{launches} launches for {2 * n} frames")
+    require(st1["readback_bytes"] < st0["readback_bytes"], (st0, st1))
+    print(f"compact readback static {n} frames: {len(files)} PNG and JSON files byte-identical; "
+          f"bytes/frame packed {st0['readback_bytes'] / n:.0f} compact {st1['readback_bytes'] / n:.0f} "
+          f"(fallback frames {st1['rle_fallback_frames']}); frames/s packed {n / s0:.3f} compact "
+          f"{n / s1:.3f} (wall, incl. PNG writes) card={card}", flush=True)
+    return launches
+
+
+def sharded_render_phase(device, card: str, max_objects: int) -> int:
+    """Phase 12: ``rasterize_splat_sharded`` (backend "cuda") on lanes of the
+    card against the unsharded ``rasterize``; returns the forward kernel's
+    launches over the sharded renders."""
+    import torch
+
+    from pegasus_tpu_torch.ops import rasterize_cuda
+    from pegasus_tpu_torch.ops.rasterize_cuda import rasterize
+    from pegasus_tpu_torch.ops.validate import compare_backends, compare_outputs
+    from pegasus_tpu_torch.parallel.mesh import make_mesh
+    from pegasus_tpu_torch.parallel.sharded_render import (rasterize_splat_sharded,
+                                                           rasterize_splat_sharded_batch)
+
+    scenes, cams = bench_scenes(device), bench_cameras(device)
+    bg = (0.1, 0.1, 0.1)
+    meshes = {n: make_mesh((n,), ("splat",), [device] * n) for n in (1, 2, 4, 8)}
+    total = 0
+
+    def wall_ms(fn, reps=3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    def counted(fn):
+        rasterize_cuda.composite_tiles.launches = 0
+        out = fn()
+        return out, rasterize_cuda.composite_tiles.launches
+
+    scene = scenes["1M"]
+    for cname, cam in cams.items():
+        with torch.no_grad():
+            unsharded = lambda: rasterize(scene, cam, background=bg, max_objects=max_objects)
+            ref = unsharded()
+            times = {"unsharded": wall_ms(unsharded)}
+        for n, mesh in meshes.items():
+            render = lambda: rasterize_splat_sharded(scene, cam, mesh, background=bg,
+                                                     max_objects=max_objects, backend="cuda")
+            out, launches = counted(render)
+            total += launches
+            require(launches == n, f"{launches} launches for {n} shards")
+            require(all(torch.equal(a, b) for a, b in zip(out, render())),
+                    f"1M {cname} {n} lanes: two sharded renders differ")
+            require(all(bool(torch.isfinite(x).all()) for x in out), "non-finite sharded render")
+            report = compare_outputs(ref, out)
+            db = {f: round(float(report[f"{f}_psnr_db"]), 2) for f in ref._fields}
+            require(report["min_psnr_db"] >= KERNEL_GATE_DB,
+                    f"1M {cname} {n} lanes below {KERNEL_GATE_DB} dB: {db}")
+            for f in ref._fields:
+                limit = FWD_ABS_GATE * max(1.0, float(getattr(ref, f).abs().max()))
+                require(report[f"{f}_max_err"] <= limit,
+                        f"1M {cname} {n} lanes: {f} max |diff| {report[f'{f}_max_err']} > {limit}")
+            times[f"{n} lanes"] = wall_ms(render)
+            print(f"sharded render 1M {cname} {n} lanes vs unsharded: dB={json.dumps(db)} "
+                  f"max_abs_err={max(report[f'{f}_max_err'] for f in ref._fields):.3e}, "
+                  f"bitwise repeatable, {launches} launches", flush=True)
+        print(f"sharded render 1M {cname} ms/frame (host clock ending in synchronize: project, sort, "
+              f"bin, composite, combine): {json.dumps({k: round(v, 3) for k, v in times.items()})} "
+              f"card={card}", flush=True)
+
+    # against the golden compositor at the 210k scene, 4 lanes
+    report, launches = counted(lambda: compare_backends(
+        scenes["210k"], cams["orbit"], backend="sharded", mesh=meshes[4],
+        max_objects=max_objects, background=bg))
+    total += launches
+    db = {f: round(float(report[f"{f}_psnr_db"]), 2) for f in ref._fields}
+    print(f"sharded render 210k orbit 4 lanes vs golden dB={json.dumps(db)}", flush=True)
+    require(launches == 4 and report["min_psnr_db"] >= GOLDEN_GATE_DB,
+            f"sharded vs golden below {GOLDEN_GATE_DB} dB ({launches} launches): {db}")
+
+    # the hybrid (2, 4) mesh over two scenes against each scene's own sharded render
+    hybrid = make_mesh((2, 4), ("scene", "splat"), [device] * 8)
+    pair = [(scenes["210k"], cams["orbit"]), (scenes["1M"], cams["grazing"])]
+    batch, launches = counted(lambda: rasterize_splat_sharded_batch(
+        [s for s, _ in pair], [c for _, c in pair], hybrid, WIDTH, HEIGHT, background=bg,
+        max_objects=max_objects, backend="cuda"))
+    total += launches
+    require(launches == 8, f"{launches} launches on the (2, 4) mesh")
+    require(batch.rgb.shape == (2, HEIGHT, WIDTH, 3), batch.rgb.shape)
+    for i, (s, c) in enumerate(pair):
+        own = rasterize_splat_sharded(s, c, meshes[4], background=bg, max_objects=max_objects,
+                                      backend="cuda")
+        require(all(torch.equal(getattr(batch, f)[i], getattr(own, f)) for f in own._fields),
+                f"hybrid mesh scene {i} differs from its own sharded render")
+    print("sharded render (2, 4) mesh over two scenes: each equals its own 4-lane render bitwise, "
+          f"{launches} launches", flush=True)
+    return total
+
+
+def batch_stage_seconds(stats) -> list:
+    """The setup / physics / render seconds of each batch of a sharded run."""
+    return [{k: round(b[f"t_{k}"], 4) for k in ("setup", "physics", "render")} for b in stats.batches]
+
+
+def sharded_generation_phase(data: Path, out: Path, device, card: str) -> int:
+    """Phase 13: ``run_generation(mesh=)`` over the smoke dataset on a
+    4-lane mesh; returns the forward kernel's launches of the gated runs."""
+    from pegasus_tpu_torch.config import GenerationConfig
+    from pegasus_tpu_torch.eval import check_bop_dataset
+    from pegasus_tpu_torch.generate import finalize_dataset, run_generation
+    from pegasus_tpu_torch.ops import rasterize_cuda
+    from pegasus_tpu_torch.parallel import mesh as pmesh
+    from pegasus_tpu_torch.physics import rigid_body as rb
+
+    env, objs = smoke_assets(data)
+
+    def config(name, mode, num_scenes, num_cameras, seed):
+        return GenerationConfig(
+            dataset_path=str(data), env_dataset_path=str(data), urdf_asset_folder=str(data / "urdf"),
+            dataset_base_path=str(out), dataset_name=name, num_scenes=num_scenes,
+            min_num_objects=3, max_num_objects=6, mode=mode, render_width=WIDTH,
+            render_height=HEIGHT, num_cameras=num_cameras, num_camera_interpolation_steps=4,
+            camera_trajectory_mode="random", render_data_points=list(MODALITIES),
+            simulation_steps=SIM_STEPS, save_video=False, seed=seed,
+        )
+
+    drops = []  # scenes of each simulate_batch call
+    simulate_batch = rb.simulate_batch
+
+    def counted(params, state0, *args, **kwargs):
+        drops.append(int(state0.pos.shape[0]))
+        return simulate_batch(params, state0, *args, **kwargs)
+
+    rb.simulate_batch = counted
+    try:
+        name = "smoke_sharded"
+        lanes4 = pmesh.make_mesh(devices=[device] * 4)
+        rasterize_cuda.composite_tiles.launches = 0
+        t0 = time.perf_counter()
+        static = run_generation(config(name, "static", 8, 10, 5), [env], objs, mesh=lanes4)
+        t_static = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        # scenes 1-8 are done: the second call resumes past them and adds 9-12, dynamic
+        dynamic = run_generation(config(name, "dynamic", 12, 2, 6), [env], objs, mesh=lanes4)
+        t_dynamic = time.perf_counter() - t0
+        launches = rasterize_cuda.composite_tiles.launches
+        records = static.records + dynamic.records
+        require([r["scene_id"] for r in records] == list(range(1, 13)), records)
+        require(drops == [4, 4, 4], f"simulate_batch calls (scenes each): {drops}, want one per batch")
+        require(launches == 8 * 40 + 4 * 8, f"{launches} launches for {8 * 40 + 4 * 8} frames written")
+        again = run_generation(config(name, "dynamic", 12, 2, 6), [env], objs, mesh=lanes4)
+        require(not again.records and rasterize_cuda.composite_tiles.launches == launches
+                and len(drops) == 3, "a resumed sharded run rendered or dropped again")
+        lines = (out / name / "generation_stats.jsonl").read_text().splitlines()
+        require(len(lines) == 12, f"{len(lines)} stats records")
+        finalize_dataset(config(name, "dynamic", 12, 2, 6))
+        for rec in records:
+            require(3 <= rec["n_objects"] <= 6 and rec["binning_overflow_frames"] == 0, rec)
+            check_bop_tree(out, name, rec["scene_id"], rec["frames"], rec["n_objects"], n_models=len(objs))
+        report = check_bop_dataset(out, name)
+        require(report["ok"], report["errors"])
+        for rec in dynamic.records:  # the poses move between frames
+            gt = json.loads((out / name / "train" / f"{rec['scene_id']:06d}" / "scene_gt.json").read_text())
+            moved = max(math.dist(a["T_m2w"][3:12:4], b["T_m2w"][3:12:4])
+                        for a, b in zip(gt["0"], gt["7"]))
+            require(moved > 1e-4, f"dynamic scene {rec['scene_id']}: no pose moved between frames")
+        for label, stats, wall in (("static", static, t_static), ("dynamic", dynamic, t_dynamic)):
+            n = len(stats.records)
+            print(f"sharded generation {label}: {n} scenes of {stats.records[0]['frames']} frames on 4 "
+                  f"lanes in {wall:.3f} s ({wall / n:.3f} s per scene, {n / wall:.3f} scenes/s, writer "
+                  f"pool drained); seconds per batch of 4 scenes "
+                  f"{json.dumps(batch_stage_seconds(stats))} (physics: one simulate_batch of "
+                  f"{SIM_STEPS} steps over the batch) card={card}", flush=True)
+
+        # scenes/s at 1, 2 and 4 lanes (4 static scenes of 40 frames each)
+        rates = {}
+        for n_lanes in (1, 2, 4):
+            mesh = pmesh.make_mesh(devices=[device] * n_lanes)
+            t0 = time.perf_counter()
+            stats = run_generation(config(f"lanes_{n_lanes}", "static", 4, 10, 7), [env], objs, mesh=mesh)
+            wall = time.perf_counter() - t0
+            require(len(stats.records) == 4, stats.records)
+            stages = batch_stage_seconds(stats)
+            rates[f"{n_lanes} lanes"] = {"scenes_per_s": round(4 / wall, 4), "wall_s": round(wall, 3),
+                            **{f"{k}_s": round(sum(b[k] for b in stages), 3)
+                               for k in ("setup", "physics", "render")}}
+        print(f"sharded generation lanes (4 static scenes of 40 frames, {SIM_STEPS} steps, PNG writes "
+              f"included): {json.dumps(rates)} card={card}", flush=True)
+    finally:
+        rb.simulate_batch = simulate_batch
+    rb.clear_step_programs()
+    return launches
+
+
+def dp_step_phase(device, card: str) -> dict:
+    """Phase 14: the data-parallel train step at the training shape, four
+    cameras on a 4-lane mesh; returns both kernels' launches."""
+    import numpy as np
+    import torch
+
+    from pegasus_tpu_torch.camera import Camera
+    from pegasus_tpu_torch.ops import composite_vjp, rasterize_cuda
+    from pegasus_tpu_torch.ops.rasterize_cuda import rasterize
+    from pegasus_tpu_torch.parallel.mesh import make_mesh
+    from pegasus_tpu_torch.training.trainer import (GROUPS, GSTrainer, TrainConfig,
+                                                    init_from_points)
+    from pegasus_tpu_torch.utils import sh as shlib
+
+    gt = train_box_cloud(device)
+    cams, gts = [], []
+    with torch.no_grad():
+        for az in (0.4, 2.0, 3.6, 5.2):
+            cam = Camera.look_at(eye=(0.75 * math.cos(az), 0.75 * math.sin(az), 0.5), target=(0, 0, 0),
+                                 up=(0, 0, 1), fovx=math.radians(55), fovy=math.radians(55),
+                                 width=TRAIN_SIZE, height=TRAIN_SIZE, device=device)
+            cams.append(cam)
+            gts.append(torch.clamp(rasterize(gt, cam, max_objects=1).rgb, 0, 1))
+    rng = np.random.default_rng(3)
+    idx = rng.choice(gt.num_splats, SEED_POINTS, replace=False)
+    xyz = gt.xyz[idx].cpu().numpy() + rng.normal(size=(SEED_POINTS, 3)) * 0.005
+    rgb = np.clip(shlib.sh2rgb(gt.f_dc[idx, 0].cpu().numpy()), 0, 1).astype(np.float32)
+    config = TrainConfig(capacity=TRAIN_CAPACITY)
+    trainer = GSTrainer(config, width=TRAIN_SIZE, height=TRAIN_SIZE, device=device)
+    state = trainer.init_state(init_from_points(xyz.astype(np.float32), rgb, config, device=device))
+    mesh = make_mesh((4,), ("batch",), [device] * 4)
+    dp_step = trainer.make_dp_train_step(mesh)
+
+    def counts():
+        return {"forward": rasterize_cuda.composite_tiles.launches,
+                "backward": composite_vjp.composite_tiles_backward.launches}
+
+    rasterize_cuda.composite_tiles.launches = 0
+    composite_vjp.composite_tiles_backward.launches = 0
+    new, metrics = dp_step(state, cams, gts)
+    torch.cuda.synchronize()
+    first_step = counts()
+    require(first_step == {"forward": 4, "backward": 4}, f"DP step launches {first_step} for 4 cameras")
+    require((new.step, new.count) == (state.step + 1, state.count + 1), (new.step, new.count))
+
+    # one _apply_grads of the mean of four single-view gradients
+    grads, losses, g2d, denom = [], [], 0.0, 0.0
+    for cam, img in zip(cams, gts):
+        loss, _, pg, og = trainer._loss_and_grads(state, cam, img)
+        a, b = trainer._densify_stats(og)
+        grads.append(pg)
+        losses.append(float(loss))
+        g2d, denom = g2d + a, denom + b
+    mean_grad = {g: sum(pg[g] for pg in grads) / 4.0 for g in GROUPS}
+    want = trainer._apply_grads(state, mean_grad, g2d, denom)
+    # One train step's tolerances (tests/test_torch_training.py): parameters
+    # and Adam's first moment rtol 1e-3 / atol 2e-5, the densify statistic
+    # rtol 5e-2 / atol 1e-7.  Adam's first update is lr x sign(g), and the
+    # scatter of K3's rows to splats sums with atomics: a gradient that
+    # cancels to rounding may flip its sign between two runs.  So the moment
+    # is held everywhere, and the parameter wherever |g| is above rounding
+    # (1e-5 of the group's largest |g|); what lies below is counted.
+    close = lambda a, b: torch.isclose(a, b, rtol=1e-3, atol=2e-5)
+    rounding, missed = {}, {}
+    for g in GROUPS:
+        require(bool(close(new.mu[g], want.mu[g]).all()), f"DP step: Adam's moment of {g} differs")
+        miss = ~close(getattr(new.cloud, g), getattr(want.cloud, g))
+        small = mean_grad[g].abs() <= 1e-5 * mean_grad[g].abs().max()
+        require(not bool((miss & ~small).any()),
+                f"DP step: {int((miss & ~small).sum())} values of {g} outside rtol 1e-3 / atol 2e-5")
+        live = mean_grad[g] != 0
+        rounding[g] = float((small & live).sum() / live.sum().clamp(min=1))
+        missed[g] = int(miss.sum())
+    require(bool(torch.isclose(new.xyz_grad_accum, want.xyz_grad_accum, rtol=5e-2, atol=1e-7).all()),
+            "DP step: the densify statistic is not the sum over the views")
+    require(torch.equal(new.denom, want.denom), "DP step: denom is not the sum over the views")
+    mean_loss = sum(losses) / 4
+    require(abs(float(metrics["loss"]) - mean_loss) <= 1e-4 * mean_loss, (float(metrics["loss"]), losses))
+
+    def timed(fn, reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(reps):
+            fn(i)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    holder = {"dp": new, "single": new}
+
+    def one_dp(_):
+        holder["dp"], holder["metrics"] = dp_step(holder["dp"], cams, gts)
+
+    def one_single(i):
+        holder["single"], _ = trainer.train_step(holder["single"], cams[i % 4], gts[i % 4])
+
+    # the comparison above launched both kernels too: count the timed steps from 0
+    rasterize_cuda.composite_tiles.launches = 0
+    composite_vjp.composite_tiles_backward.launches = 0
+    dp_ms = timed(one_dp, 19)  # 20 DP steps with the gated one
+    require(counts() == {"forward": 76, "backward": 76}, f"DP launches over 19 steps: {counts()}")
+    launches = {k: first_step[k] + v for k, v in counts().items()}
+    last = float(holder["metrics"]["loss"])
+    require(last < float(metrics["loss"]),
+            f"20 DP steps did not lower the loss: {float(metrics['loss'])} -> {last}")
+    single_ms = timed(one_single, 20)
+    print(f"DP step (4 cameras on 4 lanes, {TRAIN_SIZE}x{TRAIN_SIZE}, {SEED_POINTS} alive of "
+          f"{TRAIN_CAPACITY}): {dp_ms:.3f} ms/step beside 4 x {single_ms:.3f} = {4 * single_ms:.3f} ms "
+          f"for four single steps (host clock ending in synchronize); loss {float(metrics['loss']):.5f} "
+          f"-> {last:.5f} over 20 steps; parameter values outside the one-step tolerance "
+          f"{json.dumps(missed)}, all of them among the share of nonzero gradients within rounding "
+          f"{json.dumps({g: round(v, 6) for g, v in rounding.items()})}; launches {json.dumps(launches)} card={card}", flush=True)
+    return launches
+
+
+def dress_rehearsal_phase(tmp: Path, device, card: str) -> int:
+    """Phase 15: the full-roster dress rehearsal through
+    ``run_generation(mesh=)``; returns the forward kernel's launches."""
+    from pegasus_tpu_torch.assets.rosters import CUP_NOODLE_CLASSES, ENV_CLASSES, YCB_CLASSES
+    from pegasus_tpu_torch.config import GenerationConfig
+    from pegasus_tpu_torch.eval import check_bop_dataset, score_bop19
+    from pegasus_tpu_torch.generate import finalize_dataset, run_generation, write_targets_bop19
+    from pegasus_tpu_torch.ops import rasterize_cuda
+    from pegasus_tpu_torch.parallel.mesh import make_mesh
+    from pegasus_tpu_torch.physics import rigid_body as rb
+    from pegasus_tpu_torch.testing import build_roster_dataset, gt_as_estimates_csv
+
+    data, out, name = tmp / "roster_data", tmp / "roster_out", "rehearsal"
+    t0 = time.perf_counter()
+    # the nine environments the reference's main program wires, and all 51 objects
+    envs, objs = build_roster_dataset(
+        data, list(ENV_CLASSES.values())[:9],
+        list(YCB_CLASSES.values()) + list(CUP_NOODLE_CLASSES.values()),
+        env_splats=40_000, obj_splats=4_000,
+    )
+    t_assets = time.perf_counter() - t0
+    require(len(envs) == 9 and len(objs) == 51, (len(envs), len(objs)))
+
+    def config(mode, cam_mode, num_scenes, seed):
+        return GenerationConfig(
+            dataset_path=str(data), env_dataset_path=str(data), urdf_asset_folder=str(data / "urdf"),
+            dataset_base_path=str(out), dataset_name=name, num_scenes=num_scenes,
+            min_num_objects=3, max_num_objects=6, mode=mode, render_width=WIDTH,
+            render_height=HEIGHT, num_cameras=2, num_camera_interpolation_steps=3,
+            camera_trajectory_mode=cam_mode, render_data_points=list(MODALITIES),
+            simulation_steps=SIM_STEPS, save_video=False, seed=seed, resume=True,
+        )
+
+    mesh = make_mesh(devices=[device] * 4)
+    rasterize_cuda.composite_tiles.launches = 0
+    t0 = time.perf_counter()
+    # resume carries the dataset from run to run: scenes 1-8, 9-16, then 17-20 dynamic
+    runs = [("static", "sequence", 8, 17), ("static", "random", 16, 18),
+            ("dynamic", "random+zoom", 20, 19)]
+    records = []
+    for mode, cam_mode, upto, seed in runs:
+        stats = run_generation(config(mode, cam_mode, upto, seed), envs, objs, mesh=mesh)
+        records += [dict(rec, mode=mode, camera_mode=cam_mode) for rec in stats.records]
+    finalize_dataset(config(*runs[-1]))
+    write_targets_bop19(out, name)
+    t_generate = time.perf_counter() - t0
+    launches = rasterize_cuda.composite_tiles.launches
+    require([r["scene_id"] for r in records] == list(range(1, 21)), [r["scene_id"] for r in records])
+    require(launches == 20 * 6, f"{launches} launches for {20 * 6} frames")
+    require({r["mode"] for r in records} == {"static", "dynamic"}
+            and {r["camera_mode"] for r in records} == {"sequence", "random", "random+zoom"},
+            "a scene mode or a camera mode was not used")
+    require(all(3 <= r["n_objects"] <= 6 for r in records), [r["n_objects"] for r in records])
+
+    ds = out / name
+    minfo = json.loads((ds / "models" / "models_info.json").read_text())
+    require(len(minfo) == 51, f"{len(minfo)} models_info entries")
+    targets = json.loads((ds / "test_targets_bop19.json").read_text())
+    require(len(targets) == sum(6 * r["n_objects"] for r in records), len(targets))
+    require(any((ds / "train_ndds").glob("*.json")) and any((ds / "test_ndds").glob("*.json")),
+            "the NDDS folders are empty")
+    require(all((ds / "train" / f"{sid:06d}" / "scene_gt_info.json").exists() for sid in range(1, 21)),
+            "scene_gt_info.json missing")
+    check = check_bop_dataset(out, name)
+    require(check["ok"] and not check["errors"], check["errors"])
+    csv = tmp / "gt_estimates.csv"
+    n_est = gt_as_estimates_csv(ds, csv)
+    t0 = time.perf_counter()
+    scores = score_bop19(csv, out, name)
+    t_score = time.perf_counter() - t0
+    keep = {k: v for k, v in scores.items() if isinstance(v, (int, float))}
+    require(scores["AR"] >= 0.99 and scores["AR_mssd"] == 1.0 and scores["AR_mspd"] == 1.0,
+            f"GT poses as estimates score {keep}")
+    envs_used = sorted({r["env"] for r in records})
+    ids_used = sorted({i for r in records for i in r["object_ids"]})
+    print(f"dress rehearsal: 20 scenes (16 static, 4 dynamic) of 6 frames at {WIDTH}x{HEIGHT} on 4 lanes, "
+          f"a pool of 9 environments of 40000 splats and 51 objects of 4000; the draws used "
+          f"{len(envs_used)} environments and {len(ids_used)} objects; {len(minfo)} models_info entries, "
+          f"{len(targets)} targets, check clean, {n_est} GT poses as estimates score {json.dumps(keep)}; "
+          f"seconds: assets {t_assets:.2f}, generation {t_generate:.2f} ({20 / t_generate:.3f} scenes/s "
+          f"with gt-info, NDDS and targets), scoring {t_score:.2f} card={card}", flush=True)
+    rb.clear_step_programs()
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
                         help="also run phase 6 (frames/s with and without PNG writes, profiler trace), "
                              "a profiler trace of 20 training steps and simulate_variants(1000)")
     parser.add_argument("--from-phase", type=int, default=1, metavar="N",
-                        help="skip phases 3 to N - 1 (N > 3); such a run prints no result lines")
+                        help="skip phases 3 to N - 1 (N > 3); such a run prints no result lines; "
+                             "12 runs the build, the compact-readback case and phases 12-15")
     args = parser.parse_args()
     t_start = time.perf_counter()
     whole = args.from_phase <= 3
@@ -1269,11 +1726,14 @@ def main() -> int:
             print(f"main path host: static {json.dumps(host_static)} dynamic {json.dumps(host_dynamic)} "
                   f"cpus={len(os.sched_getaffinity(0))}", flush=True)
             stage_times(peg, card)
+            del peg
+            torch.cuda.empty_cache()
+        if whole or args.from_phase == 12:
+            compact_launches = compact_readback_case(data, out, dev, card)
+        if whole:
             # -- phase 6 ------------------------------------------------------------------------
             if args.profile:
                 profile_main_path(data, out, dev, card)
-            del peg
-            torch.cuda.empty_cache()
 
             # -- phase 7: backward kernel vs plain ----------------------------------------------
             from pegasus_tpu_torch.ops.binning import bin_splats
@@ -1298,7 +1758,18 @@ def main() -> int:
         if args.from_phase <= 10:
             loop_launches = generation_with_physics(data, out, dev, card)
         # -- phase 11: scene variants ---------------------------------------------------------------
-        variant_launches = scene_variants(dev, card)
+        if args.from_phase <= 11:
+            variant_launches = scene_variants(dev, card)
+        # -- phase 12: the splat-sharded render -------------------------------------------------------
+        sharded_launches = sharded_render_phase(dev, card, max_objects)
+        torch.cuda.empty_cache()
+        # -- phase 13: sharded generation ---------------------------------------------------------------
+        sharded_gen_launches = sharded_generation_phase(data, out, dev, card)
+        # -- phase 14: the data-parallel train step -------------------------------------------------------
+        dp_launches = dp_step_phase(dev, card)
+        torch.cuda.empty_cache()
+        # -- phase 15: the full-roster dress rehearsal ------------------------------------------------------
+        rehearsal_launches = dress_rehearsal_phase(Path(tmp), dev, card)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
     if not whole:
@@ -1309,11 +1780,18 @@ def main() -> int:
         "route": "cuda",
         "source": "pegasus_tpu_torch/csrc/composite_tiles.cu",
         "replaces": "pegasus_tpu/ops/rasterize_pallas.py:531",
-        "launches": gen_launches + train_launches["forward"] + loop_launches + variant_launches,
+        "launches": (gen_launches + compact_launches + train_launches["forward"] + loop_launches
+                     + variant_launches + sharded_launches + sharded_gen_launches
+                     + dp_launches["forward"] + rehearsal_launches),
         "launches_generation": gen_launches,
+        "launches_compact_readback": compact_launches,
         "launches_training": train_launches["forward"],
         "launches_scene_loop": loop_launches,
         "launches_scene_variants": variant_launches,
+        "launches_sharded_render": sharded_launches,
+        "launches_sharded_generation": sharded_gen_launches,
+        "launches_dp_step": dp_launches["forward"],
+        "launches_dress_rehearsal": rehearsal_launches,
         "max_abs_err": max(max_abs_err, bwd_train["fwd_max_abs_err"], bwd_210k["fwd_max_abs_err"],
                            *(f for f, _ in stress)),
         "chunk_entries": CHUNK_ENTRIES,
@@ -1336,7 +1814,9 @@ def main() -> int:
         "route": "cuda",
         "source": "pegasus_tpu_torch/csrc/composite_tiles_bwd.cu",
         "replaces": "pegasus_tpu/ops/pallas_vjp.py:105",
-        "launches": train_launches["backward"],
+        "launches": train_launches["backward"] + dp_launches["backward"],
+        "launches_training": train_launches["backward"],
+        "launches_dp_step": dp_launches["backward"],
         "max_abs_err": max(bwd_train["max_abs_err"], bwd_210k["max_abs_err"]),
         "max_abs_err_stress": max(b for _, b in stress),
         "chunk_entries": CHUNK_ENTRIES,

@@ -1,4 +1,4 @@
-"""Copied verbatim from ``pegasus_tpu/config.py``; only the comment on ``frame_chunk`` and the default dataset name differ.
+"""Copied verbatim from ``pegasus_tpu/config.py``; only the comments on ``splat_budget``, ``frame_chunk`` and ``compact_readback`` and the default dataset name differ.
 
 Declarative generation config.
 
@@ -50,12 +50,12 @@ class GenerationConfig:
     unit_scale: float = 1000.0  # BOP millimeters
     # execution
     seed: Optional[int] = None
-    splat_budget: Optional[int] = None
+    splat_budget: Optional[int] = None  # sequential path: pad every scene to this
+    # many splats; the sharded path reads it nowhere (no static shapes to keep)
     resume: bool = True  # skip scenes with finalized annotations
     frame_chunk: int = 8  # kept so that a generation_config.json written by the
     # JAX package loads; unused here (one frame per dispatch)
-    compact_readback: bool = False  # device-side RLE of sparse planes: not
-    # ported (ROADMAP M13); True raises in PEGASUS
+    compact_readback: bool = False  # device-side RLE of each frame's sparse planes
 
     def save(self, path) -> None:
         with open(path, "w") as f:

@@ -3,9 +3,13 @@
 Port of ``pegasus_tpu/generate.py``: models export, per scene physics ->
 setup -> render -> BOP, then gt-info and scene-wise -> NDDS conversion,
 with per-scene retry, resume from finished scenes and structured
-throughput stats.  Everything runs on one torch device (``device``, default
-the card); the reference's scene-data-parallel path over a device mesh
-(``mesh=`` / ``--sharded``) is not ported and raises (ROADMAP M11).
+throughput stats.  The sequential path runs on one torch device
+(``device``, default the card).  With ``mesh=`` (a ``parallel.mesh.Mesh`` of
+lanes; ``--sharded`` on the CLI: one lane per visible card) scenes are
+generated in mesh-size batches by ``parallel/generation.py``: one batched
+drop per device, one render lane per scene.  More lanes on one card are
+asked for through the library argument, e.g.
+``mesh=make_mesh(devices=["cuda:0"] * 4)``.
 
 Usage:
     from pegasus_tpu_torch.config import GenerationConfig
@@ -25,7 +29,7 @@ import numpy as np
 
 from pegasus_tpu_torch.assets.registry import Asset
 from pegasus_tpu_torch.config import GenerationConfig
-from pegasus_tpu_torch.device import DEFAULT_DEVICE
+from pegasus_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from pegasus_tpu_torch.io.bop_writer import (
     calculate_gt_info,
     convert_scenewise_to_imagewise_ndds,
@@ -41,12 +45,6 @@ from pegasus_tpu_torch.utils.observability import (
 )
 
 
-SHARDED_MESSAGE = (
-    "scene-data-parallel generation over several devices (mesh= / --sharded) "
-    "is not ported yet: ROADMAP M11"
-)
-
-
 def run_generation(
     config: GenerationConfig,
     env_list: List[Asset],
@@ -55,10 +53,15 @@ def run_generation(
     mesh=None,
     device=DEFAULT_DEVICE,
 ) -> SceneStats:
-    if mesh is not None:
-        raise NotImplementedError(SHARDED_MESSAGE)
     out_root = Path(config.dataset_base_path)
     dataset_dir = out_root / config.dataset_name
+    if mesh is not None:
+        # scene-DP path: mesh-size scene batches, one batched drop per device
+        from pegasus_tpu_torch.parallel.generation import run_generation_sharded
+
+        # like the reference, this path leaves gt-info and the NDDS
+        # conversion to the caller: finalize_dataset(config)
+        return run_generation_sharded(config, env_list, obj_list, mesh=mesh)
     dataset_dir.mkdir(parents=True, exist_ok=True)
     config.save(dataset_dir / "generation_config.json")
 
@@ -144,6 +147,17 @@ def run_generation(
             continue
         retry_scene(one_scene, scene_id)
 
+    finalize_dataset(config)
+    print(f"[pegasus-tpu-torch] generation summary: {stats.summary()}")
+    return stats
+
+
+def finalize_dataset(config: GenerationConfig) -> None:
+    """gt-info over the finished scenes and the scene-wise -> image-wise
+    NDDS conversion (80 % train, 20 % test), when the config asks for it.
+    The sequential path ends with it; after sharded runs the caller does."""
+    out_root = Path(config.dataset_base_path)
+    dataset_dir = out_root / config.dataset_name
     if config.convert_scenewise_to_imagewise:
         scene_ids = sorted(
             completed_scene_ids(out_root, config.dataset_name)
@@ -162,9 +176,6 @@ def run_generation(
             convert_scenewise_to_imagewise_ndds(
                 str(train_dir), str(dataset_dir / "test_ndds"), test_ids
             )
-
-    print(f"[pegasus-tpu-torch] generation summary: {stats.summary()}")
-    return stats
 
 
 def write_targets_bop19(dataset_root, dataset_name: str, out_name: str = "test_targets_bop19.json") -> None:
@@ -207,7 +218,7 @@ def main(argv=None) -> None:
     parser.add_argument("--objects", nargs="*", help="object class names")
     parser.add_argument(
         "--sharded", action="store_true",
-        help="scene-data-parallel generation over all devices (not ported: raises)",
+        help="scene-data-parallel generation over all visible cards (one lane each)",
     )
     parser.add_argument(
         "--device", default=DEFAULT_DEVICE,
@@ -227,9 +238,14 @@ def main(argv=None) -> None:
         if args.objects
         else registry.objects()
     )
+    mesh = None
     if args.sharded:
-        raise NotImplementedError(SHARDED_MESSAGE)
-    run_generation(config, env_list, obj_list, device=args.device)
+        from pegasus_tpu_torch.parallel.mesh import make_mesh
+
+        # --device cpu gives one CPU lane; the default is every visible card
+        devices = None if resolve_device(args.device).type == "cuda" else [args.device]
+        mesh = make_mesh(axis_names=("scene",), devices=devices)
+    run_generation(config, env_list, obj_list, mesh=mesh, device=args.device)
 
 
 if __name__ == "__main__":

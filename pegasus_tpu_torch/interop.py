@@ -30,6 +30,17 @@ def camera_from_numpy(d: dict, device=DEFAULT_DEVICE) -> Camera:
     return Camera.create(*(d[f] for f in CAMERA_FIELDS), device=device)
 
 
+def cameras_from_numpy(d: dict, device=DEFAULT_DEVICE) -> list:
+    """A stacked camera batch ({field: array with a leading batch axis} with
+    every ``CAMERA_FIELDS`` key; ``width`` and ``height`` may be scalars) ->
+    the list of cameras that ``make_dp_train_step`` and the sharded renders
+    take."""
+    n = np.asarray(d["R_w2c"]).shape[0]
+    at = lambda v, i: v if np.ndim(v) == 0 else np.asarray(v)[i]
+    return [camera_from_numpy({f: at(d[f], i) for f in CAMERA_FIELDS}, device=device)
+            for i in range(n)]
+
+
 def train_state_from_numpy(d: dict, device=DEFAULT_DEVICE) -> TrainState:
     """A training state from numpy: ``cloud`` ({field: array}, every
     ``CLOUD_FIELDS`` key), ``mu`` / ``nu`` ({group: array}, Adam's moments of

@@ -114,10 +114,11 @@ def _unfilter_sequential(kind: int, line: bytes, prev: bytes, bpp: int) -> bytes
 
 
 def read_png(path) -> np.ndarray:
-    """Decode an 8-bit grey, RGB or RGBA non-interlaced PNG into uint8
-    [H, W] (grey) or [H, W, C], the layout imageio returns.  Undoes all five
-    row filters.  Raises ValueError on any other PNG (palette, 16-bit,
-    grey+alpha, interlaced) and on a file that is not a PNG."""
+    """Decode an 8- or 16-bit grey, RGB or RGBA non-interlaced PNG into uint8
+    or uint16 [H, W] (grey) or [H, W, C], the layout imageio returns (the
+    writer's depth PNGs are 16-bit grey).  Undoes all five row filters.
+    Raises ValueError on any other PNG (palette, grey+alpha, fewer than 8
+    bits, interlaced) and on a file that is not a PNG."""
     data = Path(path).read_bytes()
     if data[:8] != _PNG_SIGNATURE:
         raise ValueError(f"{path}: not a PNG file")
@@ -135,13 +136,15 @@ def read_png(path) -> np.ndarray:
     if hdr is None:
         raise ValueError(f"{path}: no IHDR chunk")
     w, h, bits, ctype, compression, filter_method, interlace = hdr
-    if bits != 8 or ctype not in _PNG_CHANNELS or interlace or compression or filter_method:
+    if (bits not in (8, 16) or ctype not in _PNG_CHANNELS or interlace or compression
+            or filter_method):
         raise ValueError(
             f"{path}: unsupported PNG (bit depth {bits}, colour type {ctype}, "
-            f"interlace {interlace}); read_png takes 8-bit grey/RGB/RGBA, non-interlaced"
+            f"interlace {interlace}); read_png takes 8- or 16-bit grey/RGB/RGBA, non-interlaced"
         )
     ch = _PNG_CHANNELS[ctype]
-    stride = w * ch
+    bpp = ch * bits // 8  # the filters work on bytes, one pixel apart
+    stride = w * bpp
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     if raw.size != h * (stride + 1):
         raise ValueError(f"{path}: {raw.size} bytes of image data, expected {h * (stride + 1)}")
@@ -152,16 +155,18 @@ def read_png(path) -> np.ndarray:
         kind, line = int(rows[y, 0]), rows[y, 1:]
         if kind == 0:  # None
             out[y] = line
-        elif kind == 1:  # Sub: a running sum per channel, modulo 256
-            out[y] = np.cumsum(line.reshape(w, ch), axis=0, dtype=np.uint8).reshape(-1)
+        elif kind == 1:  # Sub: a running sum per byte of the pixel, modulo 256
+            out[y] = np.cumsum(line.reshape(w, bpp), axis=0, dtype=np.uint8).reshape(-1)
         elif kind == 2:  # Up
             out[y] = line + prev
         elif kind in (3, 4):  # Average, Paeth
             out[y] = np.frombuffer(
-                _unfilter_sequential(kind, line.tobytes(), prev.tobytes(), ch), np.uint8
+                _unfilter_sequential(kind, line.tobytes(), prev.tobytes(), bpp), np.uint8
             )
         else:
             raise ValueError(f"{path}: row {y} has unknown filter type {kind}")
         prev = out[y]
+    if bits == 16:  # big-endian samples
+        out = out.view(">u2").astype(np.uint16)
     img = out.reshape(h, w, ch)
     return img[..., 0] if ch == 1 else img

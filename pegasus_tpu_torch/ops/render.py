@@ -9,7 +9,8 @@ mirrors the reference's 0.1 colour-distance acceptance.
 ``encode_frame`` and ``pack_frame_bytes`` run on the device, so one uint8
 tensor per frame crosses to the host; ``unpack_frame_bytes`` and
 ``_unpack_planes`` are the reference's numpy host decode, copied.  The RLE
-compact readback (render.py:235-365) is not ported yet.
+compact readback (``split_frame_planes``, ``rle_pack_chunk`` on the device,
+``rle_unpack_chunk`` on the host) writes the reference's bytes.
 """
 
 from __future__ import annotations
@@ -112,6 +113,126 @@ def pack_frame_bytes(enc: FrameEncoded) -> torch.Tensor:
     hi = (d >> 8).to(torch.uint8)
     bits = _packbits(torch.cat([enc.mask_visib, enc.mask_amodal], dim=-1))
     return torch.cat([enc.rgb_u8, lo[..., None], hi[..., None], bits], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Compacted chunk readback: RLE the sparse planes on the device.
+#
+# The 6 B/px packed frame splits into a dense half (rgb + depth-lo, 4 B/px,
+# near-incompressible) and a sparse half (depth-hi + bit-packed masks,
+# 2 B/px): the hi byte only changes every 256 mm of depth and the mask
+# bytes are zero except where objects project.  The RLE stream lives in a
+# fixed budget of ``max_runs`` slots (the reference's layout, kept so that
+# both packages write the same bytes) and the uncompressed planes stay on
+# the device as a fallback the host fetches only when the run count
+# overflows the budget (a dense-noise frame).
+# ---------------------------------------------------------------------------
+
+RLE_HEADER_BYTES = 8  # n_runs u32 | n_elements u32 (little-endian)
+RLE_BYTES_PER_RUN = 5  # value u8 | start offset u32 (little-endian)
+
+
+def rle_max_runs(chunk: int, height: int, width: int, n_planes: int) -> int:
+    """Default run budget: stream_bytes/48 runs -> 5/48 ~ 0.10 B per plane
+    byte, i.e. a ~31% cut of the 6 B/px frame when n_planes = 2."""
+    return max(1024, (chunk * height * width * n_planes) // 48)
+
+
+def split_frame_planes(enc: FrameEncoded) -> tuple[torch.Tensor, torch.Tensor]:
+    """Encoded frame -> (dense [H,W,4] rgb+depth-lo, sparse [H,W,1+mb]
+    depth-hi+maskbits).  Concatenating (dense, sparse) channel-wise gives
+    exactly the pack_frame_bytes layout."""
+    d = enc.depth_mm
+    lo = (d & 0xFF).to(torch.uint8)
+    hi = (d >> 8).to(torch.uint8)
+    bits = _packbits(torch.cat([enc.mask_visib, enc.mask_amodal], dim=-1))
+    dense = torch.cat([enc.rgb_u8, lo[..., None]], dim=-1)
+    sparse = torch.cat([hi[..., None], bits], dim=-1)
+    return dense, sparse
+
+
+def _u32_bytes(x: torch.Tensor) -> torch.Tensor:
+    """Non-negative integers below 2**32 [...] -> little-endian uint8
+    [..., 4] (computed in int64: torch has no general uint32 arithmetic)."""
+    x = x.to(torch.int64)
+    return torch.stack([((x >> (8 * i)) & 0xFF).to(torch.uint8) for i in range(4)], dim=-1)
+
+
+def rle_pack_chunk(dense: torch.Tensor, sparse: torch.Tensor, max_runs: int):
+    """Pack a chunk ([C,H,W,4] dense, [C,H,W,P] sparse) into ONE uint8
+    transfer buffer + the raw sparse planes as overflow fallback.
+
+    Buffer layout: [8B header | 5*max_runs RLE slots | dense bytes].
+    The sparse planes are flattened PLANE-major ([P,C,H,W]) so each mask
+    byte-plane and the depth-hi plane keep their long spatial runs.  The
+    header reports the run count BEFORE the budget cuts it, which is how
+    the host learns of an overflow.  Returns (buf [8+5*max_runs+dense.size]
+    u8, sparse): the caller ships ``buf`` and fetches ``sparse`` only if the
+    header reports overflow.
+    """
+    dev = sparse.device
+    x = sparse.permute(3, 0, 1, 2).reshape(-1)
+    n = x.shape[0]
+    start = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), x[1:] != x[:-1]])
+    rid = torch.cumsum(start.to(torch.int64), 0) - 1
+    n_runs = rid[-1] + 1
+    pos = torch.arange(n, dtype=torch.int64, device=dev)
+    # one scatter per run start; everything else, runs past the budget
+    # included, lands in a slot one past the end that is cut off
+    idx = torch.where(start & (rid < max_runs), rid, torch.full_like(rid, max_runs))
+    starts = torch.zeros(max_runs + 1, dtype=torch.int64, device=dev)
+    starts[idx] = pos
+    starts = starts[:max_runs]
+    values = x[starts]
+    rle = torch.cat([values[:, None], _u32_bytes(starts)], dim=-1).reshape(-1)
+    header = torch.cat(
+        [_u32_bytes(n_runs), _u32_bytes(torch.tensor(n, dtype=torch.int64, device=dev))], dim=-1
+    ).reshape(-1)
+    buf = torch.cat([header, rle, dense.reshape(-1)])
+    return buf, sparse
+
+
+def rle_unpack_chunk(buf, chunk_shape, k: int, max_runs: int, palette=None,
+                     fallback_sparse=None, with_depth_m: bool = True):
+    """Host inverse of rle_pack_chunk (copied from the reference).
+
+    chunk_shape = (C, H, W); ``fallback_sparse`` is a zero-arg callable
+    returning the raw sparse planes [C,H,W,P] (e.g. lambda fetching the
+    device tensor) used when the run count overflowed the budget.
+    Returns the unpack_frame_bytes dict with a leading chunk axis.
+    """
+    c, h, w = chunk_shape
+    mb = (2 * k + 7) // 8
+    p = 1 + mb
+    buf = np.asarray(buf)
+    n_runs, n = np.frombuffer(
+        buf[:RLE_HEADER_BYTES].tobytes(), dtype="<u4"
+    )
+    rle_end = RLE_HEADER_BYTES + RLE_BYTES_PER_RUN * max_runs
+    if n_runs > max_runs:
+        if fallback_sparse is None:
+            raise ValueError(
+                f"RLE overflow ({n_runs} runs > budget {max_runs}) and no "
+                "fallback provided"
+            )
+        sparse = np.asarray(fallback_sparse())
+    else:
+        rle = buf[RLE_HEADER_BYTES:rle_end].reshape(max_runs,
+                                                    RLE_BYTES_PER_RUN)
+        values = rle[:n_runs, 0]
+        starts = (
+            rle[:n_runs, 1:5].astype(np.uint32)
+            * np.uint32([1, 1 << 8, 1 << 16, 1 << 24])
+        ).sum(axis=1)
+        lengths = np.diff(starts, append=np.uint32(n)).astype(np.int64)
+        flat = np.repeat(values, lengths)
+        sparse = flat.reshape(p, c, h, w).transpose(1, 2, 3, 0)
+    dense = buf[rle_end:].reshape(c, h, w, 4)
+    # (dense, sparse) channel-concat == the pack_frame_bytes layout, but
+    # the planes are consumed as views — no per-chunk concat copy
+    return _unpack_planes(
+        dense, sparse, k, palette=palette, with_depth_m=with_depth_m
+    )
 
 
 def _unpack_planes(dense, sparse, k: int, palette=None,

@@ -1,0 +1,465 @@
+"""Sharded end-to-end dataset generation: scene-DP over a mesh of lanes.
+
+Port of ``pegasus_tpu/parallel/generation.py``.  The sequential path drops
+and renders one scene after the other; here a batch of mesh-size scenes is
+set up on the host, dropped as ONE batched physics program per device
+(``rigid_body.simulate_batch`` over that device's scenes: params, start
+states and heightfields stacked on a leading scene axis), and then every
+scene renders its camera trajectory on its own lane (a device and a CUDA
+stream of its own, ``parallel/mesh.py``).  Each lane copies its scene's
+packed frames into one pinned host buffer on its stream and hands the
+two-worker writer pool an event to wait on; the pool unpacks the frames and
+writes the same BOP tree as the sequential path while the next batch is set
+up and dropped.
+
+Order inside a batch: the drop of the whole batch has finished on the host
+(its trajectory is copied back for the trajectory JSON) before any lane
+starts to render, so a lane never runs beside the capture of a physics
+step.  Writer threads of the previous batch may still wait on their events
+at that moment, which is why ``rigid_body._StepProgram`` captures with
+``capture_error_mode="thread_local"``.
+
+What the reference does for XLA's static shapes is not ported: scenes are
+not padded to ``config.splat_budget`` (the field stays in the config and is
+read nowhere here), scenes with fewer objects carry no placeholder clouds
+(absent bodies are ``body_mask = False`` slots of the physics batch), and
+the short last batch is simply shorter.  Exact binning cannot overflow, so
+``binning_overflow_frames`` is recorded as 0 and there is no warning.
+
+Call via ``run_generation(config, envs, objs, mesh=mesh)`` or directly:
+
+    from pegasus_tpu_torch.parallel.generation import run_generation_sharded
+    stats = run_generation_sharded(config, env_list, obj_list, mesh=mesh)
+"""
+
+from __future__ import annotations
+
+import time
+from pathlib import Path
+from typing import List
+
+import numpy as np
+import torch
+
+from pegasus_tpu_torch.assets.registry import Asset
+from pegasus_tpu_torch.config import GenerationConfig
+from pegasus_tpu_torch.gs.ply import load_gs_ply
+from pegasus_tpu_torch.io import colmap as colmap_io
+from pegasus_tpu_torch.io.bop_writer import BOPDatasetWriter, write_models
+from pegasus_tpu_torch.io.mesh import load_mesh
+from pegasus_tpu_torch.ops.render import (encode_frame, pack_frame_bytes,
+                                          render_frame, unpack_frame_bytes)
+from pegasus_tpu_torch.parallel.mesh import Mesh, make_mesh, map_lanes
+from pegasus_tpu_torch.physics import rigid_body as rb
+from pegasus_tpu_torch.physics.engine import PhysicsEngine
+from pegasus_tpu_torch.physics.heightfield import Heightfield
+from pegasus_tpu_torch.scene.camera_trajectory import create_camera_trajectory
+from pegasus_tpu_torch.scene.composition import (SceneTemplate, pose_scene,
+                                                 poses_from_trajectory_step)
+from pegasus_tpu_torch.scene.trajectory import AssetInfo, Trajectory
+from pegasus_tpu_torch.utils import quaternion as quat
+from pegasus_tpu_torch.utils.colors import generate_colors
+from pegasus_tpu_torch.utils.observability import (SceneStats, completed_scene_ids,
+                                                   retry_scene)
+
+HF_RESOLUTION = 128  # uniform heightfield grid so scenes stack
+
+
+def _scene_setup(config, env_list, obj_list, rng, preload, scene_id, device):
+    """Host-side per-scene randomization, mirroring PEGASUS.init_bullet:
+    the reference's draws in its order (environment, object count, the
+    choice of objects, the engine's seed, one start position per object,
+    then the camera trajectory).  The engine, the template and the cameras
+    are built on ``device``, the scene's lane."""
+    k_max = config.max_num_objects
+    env = env_list[int(rng.integers(0, len(env_list)))]
+    n_obj = int(
+        rng.integers(
+            min(config.min_num_objects, len(obj_list)),
+            min(config.max_num_objects, len(obj_list)) + 1,
+        )
+    )
+    idx = rng.choice(len(obj_list), n_obj, replace=False).tolist()
+    selected = [obj_list[i] for i in idx]
+
+    engine = PhysicsEngine(
+        asset_folder=config.urdf_asset_folder
+        or str(Path(config.dataset_path) / "urdf"),
+        output_path_json=str(
+            Path(config.dataset_base_path)
+            / config.dataset_name
+            / "engine"
+            / f"{scene_id:06d}_simulation_steps.json"
+        ),
+        simulation_steps=config.simulation_steps,
+        seed=int(rng.integers(0, 2**31)),
+        # the capacity must cover rich scenes AND be equal across the
+        # batch (stacked params)
+        max_bodies=max(8, config.max_num_objects + 1),
+        device=device,
+    )
+    engine.add_object(env, start_pos=env.START_POSITION_PYBULLET)
+    for obj in selected:
+        engine.add_object(obj, start_pos=env.define_start_pos(rng))
+    params, state0 = engine._build()
+    hf = engine.heightfield
+    if hf is None or hf.grid.shape[0] != HF_RESOLUTION:
+        hf = Heightfield.flat(resolution=HF_RESOLUTION, device=device)
+
+    env_entry = preload["envs"][env.object_name]
+    clouds = [preload["objs"][o.object_name][device] for o in selected]
+    # real bodies only, at their real size
+    template = SceneTemplate.build(env_entry["gs"][device], clouds)
+
+    cam_intr = env_entry["cam_intr"]
+    intr0 = cam_intr[min(cam_intr.keys())]
+    fx, fy, _, _ = colmap_io.colmap_intrinsics(intr0)
+    cams = create_camera_trajectory(
+        cam_extr=env_entry["cam_extr"],
+        focal_x=fx,
+        intr_width=intr0.width,
+        intr_height=intr0.height,
+        render_width=config.render_width,
+        render_height=config.render_height,
+        num_cameras=config.num_cameras,
+        num_interpolation_steps=config.num_camera_interpolation_steps,
+        mode=config.camera_trajectory_mode,
+        rng=rng,
+        device=device,
+    )
+
+    colors = np.zeros((k_max, 3), np.float32)
+    colors[:n_obj] = generate_colors(n_obj, mode="rgb")
+
+    return dict(
+        scene_id=scene_id,
+        engine=engine,
+        env=env,
+        selected=selected,
+        n_obj=n_obj,
+        params=params,
+        state0=state0,
+        heightfield=hf,
+        template=template,
+        cams=cams,
+        # host copies of the extrinsics for scene_gt: one transfer per scene
+        cam_extr_np=[(c.R_w2c.cpu().numpy(), c.t_w2c.cpu().numpy()) for c in cams],
+        colors=colors,
+        camera_intr={
+            "fx": fx, "fy": fy, "width": intr0.width, "height": intr0.height
+        },
+    )
+
+
+def _stack_params(params: List[rb.RigidBodyParams]) -> rb.RigidBodyParams:
+    """[S, B, ...] params of S scenes with equal body slots; the unrolled
+    hull-part loop is sized for the scene that needs most."""
+    fields = {}
+    for name in params[0].__dataclass_fields__:
+        values = [getattr(p, name) for p in params]
+        fields[name] = (torch.stack(values, dim=0) if isinstance(values[0], torch.Tensor)
+                        else max(values))
+    return rb.RigidBodyParams(**fields)
+
+
+def _drop_batch(setups, n_steps: int, device):
+    """One ``simulate_batch`` over the scenes of one device -> per scene
+    (times_t [B, T, 3], times_q xyzw [B, T, 4]) as numpy, real bodies only."""
+    params = _stack_params([s["params"] for s in setups])
+    state0 = rb.RigidBodyState(**{
+        f: torch.stack([getattr(s["state0"], f) for s in setups], dim=0)
+        for f in ("pos", "rot", "linvel", "angvel")
+    })
+    hf = Heightfield.stacked([s["heightfield"] for s in setups])
+    engine = setups[0]["engine"]
+    traj, _ = rb.simulate_batch(
+        params, state0, n_steps=n_steps, dt=engine.dt, gravity=engine.gravity,
+        heightfield=hf, device=device,
+    )
+    pos = traj.pos.cpu().numpy()  # [S, T, B, 3]
+    rot = quat.wxyz_to_xyzw(traj.rot).cpu().numpy()  # [S, T, B, 4]
+    out = []
+    for i, setup in enumerate(setups):
+        nb = 1 + setup["n_obj"]
+        out.append((np.transpose(pos[i], (1, 0, 2))[:nb], np.transpose(rot[i], (1, 0, 2))[:nb]))
+    return out
+
+
+def _render_scene(lane, setup, frame_steps, static_pose: bool, background):
+    """One scene's frame loop on its lane: pose (once for a static scene,
+    per frame for a dynamic one), ``render_frame`` -> ``encode_frame`` ->
+    ``pack_frame_bytes``, each frame copied into one pinned host buffer on
+    the lane's stream.  Returns (packed [F, H, W, C] uint8 on the host,
+    body_R [F, B, 3, 3], body_t [F, B, 3], event that completes with the
+    copies or None on the CPU)."""
+    dev = lane.device
+    template, cams = setup["template"], setup["cams"]
+    times_t, times_q = setup["times_t"], setup["times_q"]
+    colors = torch.tensor(setup["colors"], dtype=torch.float32, device=dev)
+    n_frames = len(cams)
+    on_card = dev.type == "cuda"
+
+    def host_buffer(shape, dtype):
+        return torch.empty((n_frames,) + tuple(shape), dtype=dtype, pin_memory=on_card)
+
+    packed_h = body_R_h = body_t_h = None
+    with torch.no_grad():
+        if static_pose:
+            body_R, body_t = poses_from_trajectory_step(
+                times_t, times_q, int(frame_steps[0]), device=dev
+            )
+            scene = pose_scene(template, body_R, body_t)
+        for i, cam in enumerate(cams):
+            if not static_pose:
+                body_R, body_t = poses_from_trajectory_step(
+                    times_t, times_q, int(frame_steps[i]), device=dev
+                )
+                scene = pose_scene(template, body_R, body_t)
+            frame = render_frame(scene, cam, colors, background=background)
+            packed = pack_frame_bytes(encode_frame(frame))
+            if packed_h is None:
+                packed_h = host_buffer(packed.shape, packed.dtype)
+                body_R_h = host_buffer(body_R.shape, body_R.dtype)
+                body_t_h = host_buffer(body_t.shape, body_t.dtype)
+            packed_h[i].copy_(packed, non_blocking=True)
+            body_R_h[i].copy_(body_R, non_blocking=True)
+            body_t_h[i].copy_(body_t, non_blocking=True)
+    event = None
+    if on_card:
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(dev))
+    return packed_h, body_R_h, body_t_h, event
+
+
+def run_generation_sharded(
+    config: GenerationConfig,
+    env_list: List[Asset],
+    obj_list: List[Asset],
+    mesh: Mesh = None,
+) -> SceneStats:
+    """Generate ``config.num_scenes`` scenes in mesh-sized batches.
+    ``mesh=None`` is a 1-D 'scene' mesh with one lane per visible card."""
+    if mesh is None:
+        mesh = make_mesh(axis_names=("scene",))
+    lanes = mesh.lanes()
+    devices = mesh.distinct_devices()
+    n_dev = len(lanes)
+    out_root = Path(config.dataset_base_path)
+    dataset_dir = out_root / config.dataset_name
+    dataset_dir.mkdir(parents=True, exist_ok=True)
+    config.save(dataset_dir / "generation_config.json")
+
+    rng = np.random.default_rng(config.seed)
+
+    # preload GS clouds (one copy per device of the mesh) + COLMAP poses once
+    preload = {"envs": {}, "objs": {}}
+    load_iter = 30_000
+    for env in env_list:
+        reco = Path(env.reconstruction_path)
+        cloud = load_gs_ply(env.gaussian_point_cloud_path(load_iter), device=devices[0])
+        preload["envs"][env.object_name] = {
+            "gs": {d: cloud.to(d) for d in devices},
+            "cam_extr": colmap_io.read_images_binary(reco / "sparse/0/images.bin"),
+            "cam_intr": colmap_io.read_cameras_binary(reco / "sparse/0/cameras.bin"),
+        }
+    for obj in obj_list:
+        obj.mode = "fused"
+        cloud = load_gs_ply(obj.gaussian_point_cloud_path(load_iter), device=devices[0])
+        preload["objs"][obj.object_name] = {d: cloud.to(d) for d in devices}
+
+    models = {
+        obj.ID: load_mesh(obj.urdf_obj_path)
+        for obj in obj_list
+        if Path(obj.urdf_obj_path).exists()
+    }
+    if models:
+        write_models(models, dataset_dir / "models", config.unit_scale)
+
+    n_frames = config.num_cameras * config.num_camera_interpolation_steps
+    if config.mode == "dynamic":
+        frame_steps = np.clip(
+            np.arange(n_frames), 0, config.simulation_steps - 1
+        ).astype(np.int32)
+    else:
+        frame_steps = np.full(
+            n_frames, config.simulation_steps - 1, np.int32
+        )
+    static_pose = config.mode != "dynamic"
+
+    stats = SceneStats(path=str(dataset_dir / "generation_stats.jsonl"))
+    scene_ids = list(range(1, config.num_scenes + 1))
+    if config.resume:
+        done = completed_scene_ids(out_root, config.dataset_name)
+        scene_ids = [s for s in scene_ids if s not in done]
+
+    def one_batch(batch_ids) -> None:
+        t0 = time.perf_counter()
+        batch_lanes = lanes[: len(batch_ids)]
+        setups = [
+            _scene_setup(config, env_list, obj_list, rng, preload, sid, lane.device)
+            for sid, lane in zip(batch_ids, batch_lanes)
+        ]
+        t_setup = time.perf_counter() - t0
+
+        # one drop per device over that device's scenes; every drop has
+        # ended (its trajectory is on the host) before a lane renders
+        t1 = time.perf_counter()
+        for dev in devices:
+            on_dev = [s for s, lane in zip(setups, batch_lanes) if lane.device == dev]
+            if not on_dev:
+                continue
+            for setup, (times_t, times_q) in zip(
+                on_dev, _drop_batch(on_dev, config.simulation_steps, dev)
+            ):
+                setup["times_t"], setup["times_q"] = times_t, times_q
+        t_physics = time.perf_counter() - t1
+
+        t2 = time.perf_counter()
+        rendered = map_lanes(
+            batch_lanes,
+            lambda lane, setup: _render_scene(
+                lane, setup, frame_steps, static_pose, config.background
+            ),
+            setups,
+        )
+        t_render = time.perf_counter() - t2
+
+        # host writes (event wait + unpack + PNG/JSON) run on the writer
+        # pool so the NEXT batch's setup + device work overlap them
+        k_max = config.max_num_objects
+        for setup, (packed, body_R, body_t, event) in zip(setups, rendered):
+            writers.append(
+                write_pool.submit(
+                    _write_scene, config, setup, models, packed, body_R, body_t,
+                    setup["times_t"], setup["times_q"], k_max, event,
+                )
+            )
+        dt = time.perf_counter() - t0
+        n_real = len(setups)
+        for setup in setups:
+            stats.record(
+                setup["scene_id"],
+                frames=n_frames,
+                seconds=dt / n_real,
+                frames_per_s=n_frames * n_real / dt,
+                splats=int(setup["template"].cloud.num_splats),
+                n_objects=setup["n_obj"],
+                env=setup["env"].object_name,
+                object_ids=[int(o.ID) for o in setup["selected"]],
+                binning_overflow_frames=0,
+            )
+        # the batch's stages, in seconds of the whole batch
+        stats.batches.append(dict(scene_ids=list(batch_ids), t_setup=t_setup,
+                                  t_physics=t_physics, t_render=t_render))
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    write_pool = ThreadPoolExecutor(max_workers=2)
+    writers = []
+    try:
+        for batch_start in range(0, len(scene_ids), n_dev):
+            batch_ids = scene_ids[batch_start : batch_start + n_dev]
+            # bounded retries per batch (a failed batch is re-randomized on
+            # retry, like the sequential path's per-scene retry)
+            retry_scene(lambda _sid: one_batch(batch_ids), batch_ids[0])
+    finally:
+        for fut in writers:
+            fut.result()  # re-raises writer exceptions
+        write_pool.shutdown(wait=True)
+    print(f"[pegasus-tpu-torch] sharded generation summary: {stats.summary()}")
+    return stats
+
+
+def _write_scene(
+    config, setup, models, packed, body_R, body_t, times_t, times_q, k_max, event=None
+):
+    """Host-side BOP write of one scene from a lane's outputs (same schema
+    as the sequential path).  Runs on the writer pool: it waits for the
+    lane's copies (``event``) here, so that they overlap the next batch."""
+    if event is not None:
+        event.synchronize()
+    packed = packed.numpy()
+    body_R = body_R.numpy()
+    body_t = body_t.numpy()
+    sid = setup["scene_id"]
+    n_obj = setup["n_obj"]
+    engine = setup["engine"]
+
+    # trajectory JSON (reference schema)
+    env_name = list(engine.asset_list["environment"].keys())[0]
+    env_info = AssetInfo(
+        name=env_name,
+        class_name=engine.asset_list["environment"][env_name]["class_name"],
+        bullet_ids=engine.asset_list["environment"][env_name]["bullet_id"],
+    )
+    objects = {
+        name: AssetInfo(
+            name=name,
+            class_name=d["class_name"],
+            bullet_ids=d["bullet_id"],
+            object_ID=d.get("object_ID"),
+            center_of_mass=d.get("center_of_mass"),
+        )
+        for name, d in engine.asset_list["object"].items()
+    }
+    nb_real = 1 + n_obj
+    Trajectory(
+        environment=env_info,
+        objects=objects,
+        times_t=times_t[:nb_real],
+        times_q=times_q[:nb_real],
+    ).to_json(engine.trajectory_path)
+
+    writer = BOPDatasetWriter(
+        dataset_name=config.dataset_name,
+        dataset_output_path=Path(config.dataset_base_path),
+        camera_intr=setup["camera_intr"],
+        render_width=config.render_width,
+        render_height=config.render_height,
+        object_models=models,
+        scene_id=sid,
+        unit_scale=config.unit_scale,
+        write_models_now=False,
+    )
+    bullet_to_real = {
+        bid: d.get("object_ID")
+        for d in engine.asset_list["object"].values()
+        for bid in d["bullet_id"]
+    }
+    data_points = config.render_data_points
+    for i, (cam_R, cam_t) in enumerate(setup["cam_extr_np"]):
+        data = unpack_frame_bytes(
+            packed[i], k_max, palette=setup["colors"], with_depth_m=False
+        )
+        writer.add_scene_camera(i)
+        writer.write_training_data(
+            frame_id=i,
+            rgb=data["rgb_u8"] if "rgb" in data_points else None,
+            depth_mm=data["depth_mm"]
+            if ("depth" in data_points or "rgb" in data_points)
+            else None,
+            mask_amodal=data["mask_amodal"][..., :n_obj]
+            if "seg_sil" in data_points
+            else None,
+            mask_visib=data["mask_visib"][..., :n_obj]
+            if "seg_vis" in data_points
+            else None,
+            sem_mask=data["sem_u8"] if "sem_seg" in data_points else None,
+        )
+        object_poses = [
+            {
+                "bullet_id": bid,
+                "obj_id": bullet_to_real.get(bid, bid),
+                "R_init": body_R[i, bid],
+                "t_init": body_t[i, bid],
+            }
+            for bid in range(1, nb_real)
+        ]
+        writer.add_scene_gt(
+            frame_id=i,
+            cam_R_w2c=cam_R,
+            cam_t_w2c=cam_t,
+            object_poses=object_poses,
+        )
+    writer.save_scene_annotations()
+    writer.close()

@@ -1,12 +1,15 @@
-"""Scene-variant generation on one device.
+"""Scene-variant generation, on one device or over a mesh of lanes.
 
 Port of ``pegasus_tpu/parallel/scene_batch.py``: V randomized drops of one
 scene are simulated to rest as ONE batched physics program
 (``rigid_body.simulate_batch`` over the variant axis), then each variant is
 posed and rendered once by the port's ``rasterize`` (one launch of the tile
 compositor kernel per variant: the reference's ``lax.map`` is a Python loop
-here).  The reference shards the variant axis over a device mesh; that part
-is not ported (ROADMAP M11), so there is no ``mesh`` argument.
+here).  With ``mesh=`` (a 1-D 'scene' mesh, ``parallel/mesh.py``) the variant
+axis is cut into one contiguous slice per lane: the physics stays one
+``simulate_batch`` per device of the mesh, over the variants of that
+device's lanes, each lane poses and renders its slice, and the outputs are
+gathered on the first lane's device in variant order.
 
 The start states come from an explicit ``torch.Generator`` on the CPU, so a
 seed means the same drops on any device.
@@ -21,6 +24,7 @@ import torch
 from pegasus_tpu_torch.camera import Camera
 from pegasus_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from pegasus_tpu_torch.ops.rasterize_cuda import rasterize
+from pegasus_tpu_torch.parallel.mesh import Lane, Mesh, lane_slices, map_lanes, to_device
 from pegasus_tpu_torch.physics import rigid_body as rb
 from pegasus_tpu_torch.physics.heightfield import Heightfield
 from pegasus_tpu_torch.scene.composition import SceneTemplate, pose_scene
@@ -35,6 +39,9 @@ class SceneBatchResult(NamedTuple):
     amodal: torch.Tensor  # [V, H, W, K]
     final_pos: torch.Tensor  # [V, B, 3] rest poses
     final_rot: torch.Tensor  # [V, B, 4] wxyz
+
+
+RENDER_FIELDS = SceneBatchResult._fields[:5]  # what each variant's render gives
 
 
 def variant_start_states(
@@ -78,41 +85,69 @@ def generate_scene_variants(
     generator: Optional[torch.Generator] = None,
     heightfield: Optional[Heightfield] = None,
     device=DEFAULT_DEVICE,
+    mesh: Optional[Mesh] = None,
 ) -> SceneBatchResult:
     """Randomize drops, simulate to rest, render: V variants.
 
     ``physics_params`` (``[B, ...]``, shared by every variant) and
     ``template`` describe one scene; the drops are drawn from ``generator``
     (default: a CPU generator seeded with ``seed``).  Returns every output
-    stacked over the variant axis, on ``device``.
+    stacked over the variant axis, on ``device`` or, with ``mesh``, on the
+    mesh's first device (``device`` is not read then).
     """
-    device = resolve_device(device)
+    lanes = mesh.lanes() if mesh is not None else [Lane(resolve_device(device))]
+    home = lanes[0].device
     if generator is None:
         generator = torch.Generator().manual_seed(seed)
     n_bodies = template.num_bodies
     states = variant_start_states(
-        n_variants, n_bodies, drop_height, drop_region, generator, device
+        n_variants, n_bodies, drop_height, drop_region, generator, home
     )
-    _, final = rb.simulate_batch(
-        physics_params, states, n_steps=n_steps, heightfield=heightfield, device=device
-    )
-    body_R = quat.quat_to_rotmat(final.rot)  # [V, B, 3, 3]
-    body_R[:, 0] = torch.eye(3, dtype=torch.float32, device=device)
-    body_t = final.pos.clone()
-    body_t[:, 0] = 0.0
+    cuts = lane_slices(n_variants, len(lanes))
 
-    outs = []
-    with torch.no_grad():
-        for v in range(n_variants):
-            scene = pose_scene(template, body_R[v, :n_bodies], body_t[v, :n_bodies])
-            outs.append(rasterize(scene, cam, max_objects=max_objects))
-    stack = lambda name: torch.stack([getattr(o, name) for o in outs], dim=0)
+    # one drop per device, over the variants of that device's lanes
+    finals = [None] * len(lanes)
+    for dev in dict.fromkeys(lane.device for lane in lanes):
+        mine = [i for i, lane in enumerate(lanes) if lane.device == dev]
+        index = torch.cat([torch.arange(cuts[i].start, cuts[i].stop) for i in mine])
+        if index.numel() == 0:
+            continue
+        picked = rb.RigidBodyState(**{f: getattr(states, f)[index.to(home)]
+                                      for f in ("pos", "rot", "linvel", "angvel")})
+        _, final = rb.simulate_batch(
+            physics_params, picked, n_steps=n_steps, heightfield=heightfield, device=dev
+        )
+        lo = 0
+        for i in mine:
+            n = cuts[i].stop - cuts[i].start
+            finals[i] = (final.pos[lo : lo + n], final.rot[lo : lo + n])
+            lo += n
+
+    per_device = {dev: (to_device(template, dev), to_device(cam, dev))
+                  for dev in dict.fromkeys(lane.device for lane in lanes)}
+
+    def render_slice(lane, final):
+        pos, rot = final
+        tmpl, camera = per_device[lane.device]
+        body_R = quat.quat_to_rotmat(rot)  # [v, B, 3, 3]
+        body_R[:, 0] = torch.eye(3, dtype=torch.float32, device=lane.device)
+        body_t = pos.clone()
+        body_t[:, 0] = 0.0
+        outs = []
+        with torch.no_grad():
+            for v in range(pos.shape[0]):
+                scene = pose_scene(tmpl, body_R[v, :n_bodies], body_t[v, :n_bodies])
+                out = rasterize(scene, camera, max_objects=max_objects)
+                outs.append(tuple(getattr(out, name).to(home) for name in RENDER_FIELDS))
+        return outs
+
+    busy = [i for i, f in enumerate(finals) if f is not None]
+    rendered = map_lanes([lanes[i] for i in busy], render_slice, [finals[i] for i in busy])
+    outs = [o for lane_outs in rendered for o in lane_outs]
+    stacked = {name: torch.stack([o[j] for o in outs], dim=0)
+               for j, name in enumerate(RENDER_FIELDS)}
     return SceneBatchResult(
-        rgb=stack("rgb"),
-        depth=stack("depth"),
-        seg_weights=stack("seg_weights"),
-        vis_weights=stack("vis_weights"),
-        amodal=stack("amodal"),
-        final_pos=final.pos,
-        final_rot=final.rot,
+        **stacked,
+        final_pos=torch.cat([finals[i][0].to(home) for i in busy], dim=0),
+        final_rot=torch.cat([finals[i][1].to(home) for i in busy], dim=0),
     )

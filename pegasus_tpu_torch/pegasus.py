@@ -21,8 +21,12 @@ Differences from the reference, all deliberate:
     ``binning_overflow_frames`` and there is no overflow warning;
   * preview videos (``VideoStreams``, which needs cv2) are built only when
     ``generate_dataset(save_video=True)``;
-  * ``publish2gui`` and ``compact_readback`` are not ported (ROADMAP M13),
-    nor is the XLA compile cache (nothing to cache: torch runs eagerly).
+  * ``compact_readback`` run-length encodes each frame's sparse planes on
+    the device (``ops/render.py::rle_pack_chunk``) with a chunk of C = 1
+    frame, since a frame is one dispatch here; the raw planes are fetched
+    only for a frame whose header reports a run-budget overflow;
+  * ``publish2gui`` is not ported (ROADMAP M13), nor is the XLA compile
+    cache (nothing to cache: torch runs eagerly).
 """
 
 from __future__ import annotations
@@ -42,7 +46,9 @@ from pegasus_tpu_torch.io.bop_writer import BOPDatasetWriter
 from pegasus_tpu_torch.io.mesh import load_mesh
 from pegasus_tpu_torch.physics.engine import MAX_BODIES, PhysicsEngine
 from pegasus_tpu_torch.ops.render import (encode_frame, pack_frame_bytes,
-                                          render_frame, unpack_frame_bytes)
+                                          render_frame, rle_max_runs,
+                                          rle_pack_chunk, rle_unpack_chunk,
+                                          split_frame_planes, unpack_frame_bytes)
 from pegasus_tpu_torch.scene.camera_trajectory import create_camera_trajectory
 from pegasus_tpu_torch.scene.composition import (SceneTemplate, pose_scene,
                                                  poses_from_trajectory_step)
@@ -86,10 +92,7 @@ class PEGASUS:
             raise NotImplementedError(
                 "publish2gui (SIBR viewer) is not ported yet: ROADMAP M13"
             )
-        if compact_readback:
-            raise NotImplementedError(
-                "compact_readback (RLE readback) is not ported yet: ROADMAP M13"
-            )
+        self.compact_readback = compact_readback
         self.device = resolve_device(device)
         self.dataset_path = dataset_path
         self.env_dataset_path = env_dataset_path or dataset_path
@@ -309,10 +312,19 @@ class PEGASUS:
             else None
         )
 
-        stats = {"readback_bytes": 0, "fetch_stall_s": 0.0}
+        stats = {"readback_bytes": 0, "fetch_stall_s": 0.0, "rle_fallback_frames": 0}
         progress = tqdm.tqdm(total=n_frames, disable=self.QUIET)
+        compact = self.compact_readback
+        h, w = self.render_height, self.render_width
+        max_runs = rle_max_runs(1, h, w, 1 + (2 * n_objects + 7) // 8)
 
-        def write(i, host, event):
+        def fetch_fallback(sparse_dev):
+            stats["rle_fallback_frames"] += 1
+            raw_sparse = sparse_dev.cpu().numpy()
+            stats["readback_bytes"] += raw_sparse.nbytes
+            return raw_sparse
+
+        def write(i, host, event, sparse_dev=None):
             t_wait = time.perf_counter()
             if event is not None:
                 event.synchronize()
@@ -322,9 +334,17 @@ class PEGASUS:
             body_R_np, body_t_np = (
                 (host[1].numpy(), host[2].numpy()) if dynamic else static_poses
             )
-            data = unpack_frame_bytes(
-                raw, n_objects, palette=self.semantic_colors, with_depth_m=save_video
-            )
+            if compact:
+                chunk = rle_unpack_chunk(
+                    raw, (1, h, w), n_objects, max_runs, palette=self.semantic_colors,
+                    fallback_sparse=lambda: fetch_fallback(sparse_dev),
+                    with_depth_m=save_video,
+                )
+                data = {name: plane[0] for name, plane in chunk.items()}
+            else:
+                data = unpack_frame_bytes(
+                    raw, n_objects, palette=self.semantic_colors, with_depth_m=save_video
+                )
             cam_R, cam_t = self._cam_extr_np[i]
             writer.add_scene_camera(i)
             if save_bop:
@@ -378,10 +398,17 @@ class PEGASUS:
             frame = render_frame(
                 scene, cam, self._semantic_colors_dev, background=self.background
             )
-            host, event = self._to_host((pack_frame_bytes(encode_frame(frame)),) + tuple(poses))
+            enc = encode_frame(frame)
+            sparse_dev = None
+            if compact:
+                dense, sparse = split_frame_planes(enc)
+                packed, sparse_dev = rle_pack_chunk(dense[None], sparse[None], max_runs)
+            else:
+                packed = pack_frame_bytes(enc)
+            host, event = self._to_host((packed,) + tuple(poses))
             if pending is not None:
                 write(*pending)  # overlaps frame i's device work
-            pending = (i, host, event)
+            pending = (i, host, event, sparse_dev)
         if pending is not None:
             write(*pending)
         progress.close()
@@ -389,6 +416,8 @@ class PEGASUS:
             "readback_bytes": int(stats["readback_bytes"]),
             "fetch_stall_s": round(stats["fetch_stall_s"], 3),
         }
+        if compact:
+            self.last_render_stats["rle_fallback_frames"] = stats["rle_fallback_frames"]
 
     def save2bop(self) -> None:
         """Finalize scene annotations."""

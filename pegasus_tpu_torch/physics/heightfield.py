@@ -35,6 +35,12 @@ class Heightfield(NamedTuple):
             resolve_device(device),
         )
 
+    @classmethod
+    def stacked(cls, fields) -> "Heightfield":
+        """One heightfield per scene of a batch: grids of one resolution
+        stacked to ``[S, R, R]``, the scalars to ``[S]``."""
+        return cls(*(torch.stack(column, dim=0) for column in zip(*fields)))
+
     def to(self, device) -> "Heightfield":
         return Heightfield(*(t.to(device) for t in self))
 
@@ -81,8 +87,17 @@ def bake_heightfield(vertices, faces, resolution: int = 128,
 
 
 def height_at(hf: Heightfield, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Bilinear ground height at (x, y); outside the grid -> 0 (the plane)."""
-    r = hf.grid.shape[0]
+    """Bilinear ground height at (x, y); outside the grid -> 0 (the plane).
+
+    ``hf`` is one grid ``[R, R]`` shared by every leading axis of x and y,
+    or one grid per scene (``Heightfield.stacked``: grid ``[S, R, R]``,
+    scalars ``[S]``) for x and y of shape ``[S, ...]``."""
+    r = hf.grid.shape[-1]
+    per_scene = hf.grid.dim() == 3
+    if per_scene:
+        lead = (hf.grid.shape[0],) + (1,) * (x.dim() - 1)
+        scene = torch.arange(lead[0], device=x.device).reshape(lead)
+        hf = Heightfield(hf.grid, *(v.reshape(lead) for v in hf[1:]))
     fx = (x - hf.x0) * hf.inv_dx
     fy = (y - hf.y0) * hf.inv_dy
     inside = (fx >= 0) & (fx <= r - 1) & (fy >= 0) & (fy <= r - 1)
@@ -98,11 +113,12 @@ def height_at(hf: Heightfield, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor
     x0 = fx0.long()
     y0 = fy0.long()
     g = hf.grid
+    at = (lambda yy, xx: g[scene, yy, xx]) if per_scene else (lambda yy, xx: g[yy, xx])
     h = (
-        g[y0, x0] * (1 - tx) * (1 - ty)
-        + g[y0, x0 + 1] * tx * (1 - ty)
-        + g[y0 + 1, x0] * (1 - tx) * ty
-        + g[y0 + 1, x0 + 1] * tx * ty
+        at(y0, x0) * (1 - tx) * (1 - ty)
+        + at(y0, x0 + 1) * tx * (1 - ty)
+        + at(y0 + 1, x0) * (1 - tx) * ty
+        + at(y0 + 1, x0 + 1) * tx * ty
     )
     return torch.where(inside, h, torch.zeros_like(h))
 

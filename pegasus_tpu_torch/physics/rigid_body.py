@@ -778,7 +778,10 @@ class _StepProgram:
             one_step()
         torch.cuda.current_stream(dev).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+        # thread_local: only this thread's calls are held to the capture's
+        # rules, so another thread (a dataset writer waiting on its event)
+        # cannot fail it
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
             self.rows_out = one_step()
             self.rows_in.copy_(self.rows_out)
 

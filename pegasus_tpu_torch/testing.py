@@ -320,3 +320,51 @@ def build_synthetic_dataset(
             mesh_extents=tuple(2 * h for h in half),
         )
     return root
+
+
+def build_roster_dataset(root, env_classes, obj_classes, rng=None,
+                         env_splats: int = 2048, obj_splats: int = 768):
+    """Synthetic assets for a list of roster classes (``assets/rosters.py``):
+    one ``build_synthetic_dataset`` call per environment, the objects
+    materialised by the first.  Returns (environment assets, object assets)
+    bound to ``root``."""
+    rng = rng or np.random.default_rng(9)
+    envs = [cls(root) for cls in env_classes]
+    objs = [cls(root) for cls in obj_classes]
+    build_synthetic_dataset(
+        root, env_name=envs[0].object_name, object_names=[o.object_name for o in objs],
+        rng=rng, env_splats=env_splats, obj_splats=obj_splats,
+    )
+    for env in envs[1:]:
+        build_synthetic_dataset(
+            root, env_name=env.object_name, object_names=(), rng=rng, env_splats=env_splats,
+        )
+    return envs, objs
+
+
+def gt_as_estimates_csv(dataset_dir, out_csv) -> int:
+    """BOP results CSV holding every ``scene_gt.json`` pose of a dataset as
+    an estimate of score 1: scored against its own ground truth, a correct
+    writer and scorer give mssd and mspd recalls of exactly 1.  Returns the
+    number of poses written."""
+    import json
+
+    lines = ["scene_id,im_id,obj_id,score,R,t,time"]
+    n = 0
+    for scene_dir in sorted((Path(dataset_dir) / "train").iterdir()):
+        gt_path = scene_dir / "scene_gt.json"
+        if not gt_path.exists():
+            continue
+        sid = int(scene_dir.name)
+        for fid, entries in json.loads(gt_path.read_text()).items():
+            for e in entries:
+                R = np.asarray(e["cam_R_m2c"], float).reshape(-1)
+                t = np.asarray(e["cam_t_m2c"], float)
+                lines.append(
+                    f"{sid},{fid},{e['obj_id']},1.0,"
+                    + " ".join(f"{v:.9f}" for v in R) + ","
+                    + " ".join(f"{v:.6f}" for v in t) + ",0.05"
+                )
+                n += 1
+    Path(out_csv).write_text("\n".join(lines))
+    return n

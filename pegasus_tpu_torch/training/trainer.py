@@ -25,9 +25,10 @@ backward kernel (K3) on the card, their plain torch versions on the CPU.
 
 Dropped: ``backend``, ``render_fn`` and ``max_per_tile`` (the XLA backend
 selection and the tiled backend's per-tile cap; exact binning has no cap)
-and ``enable_compilation_cache`` (XLA's).  Not ported yet, and raising:
-``mesh=`` / ``make_dp_train_step`` (ROADMAP M11) and the wrapper's
-``gui=True`` (ROADMAP M13, ``network_gui``).
+and ``enable_compilation_cache`` (XLA's).  Data-parallel training
+(``make_dp_train_step``, ``train(mesh=)``) runs a camera batch over the lanes
+of a ``parallel.mesh.Mesh``, one compositor pair per camera.  Not ported
+yet, and raising: the wrapper's ``gui=True`` (ROADMAP M13, ``network_gui``).
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ from pegasus_tpu_torch.ops.binning import bin_splats
 from pegasus_tpu_torch.ops.composite_vjp import composite_tiles_diff
 from pegasus_tpu_torch.ops.projection import project_gaussians
 from pegasus_tpu_torch.ops.rasterize_cuda import outputs_from_channels
+from pegasus_tpu_torch.parallel.mesh import lane_slices, map_lanes, to_device
 from pegasus_tpu_torch.training.losses import gs_loss
 from pegasus_tpu_torch.utils import quaternion as quat
 from pegasus_tpu_torch.utils import sh as shlib
@@ -212,8 +214,9 @@ class GSTrainer:
         c = self.config
         active_deg = min(state.step // c.sh_increase_interval, c.max_sh_degree)
         params = {g: p.detach().requires_grad_(True) for g, p in _param_dict(state.cloud).items()}
-        offset = torch.zeros((c.capacity, 2), device=self.device, requires_grad=True)
-        sink = (torch.zeros((c.capacity, 2), device=self.device, requires_grad=True)
+        dev = state.cloud.device  # a lane's copy of the state may lie on another card
+        offset = torch.zeros((c.capacity, 2), device=dev, requires_grad=True)
+        sink = (torch.zeros((c.capacity, 2), device=dev, requires_grad=True)
                 if c.densify_abs_grad else None)
         with record_function("train_step/project"):
             proj = self._project_with_offset(state.cloud.replace(**params), cam, offset, active_deg)
@@ -290,9 +293,69 @@ class GSTrainer:
         return state, {"loss": loss, **aux}
 
     def make_dp_train_step(self, mesh, axis: str = "batch"):
-        raise NotImplementedError(
-            "data-parallel training is not ported yet (ROADMAP M11, scale-out)"
-        )
+        """Data-parallel step over a CAMERA batch spread on the lanes of a
+        1-D ``axis`` mesh.
+
+        Each lane renders its contiguous share of the cameras (one forward
+        and one backward compositor launch per camera) and reduces over
+        them: the mean of loss, aux and parameter gradients, the SUM of the
+        densify statistics (they accumulate per view; with
+        ``densify_abs_grad`` the AbsGS probe sums the same way).  The
+        lanes' results come to the first lane's device, where they are
+        averaged (summed) in lane order and ONE Adam update is applied:
+        Inria with batch size = camera batch, the step and the Adam count
+        advancing by one.  Lanes on other devices work on a copy of the
+        state made at the start of each call, so the state that comes back
+        is the one to pass next.
+
+        Returns fn(state, cams_b, gts_b) -> (state, metrics).  ``cams_b`` is
+        a sequence of cameras, ``gts_b`` their images (a sequence or one
+        stacked tensor); their number must be a multiple of the mesh size.
+        """
+        if mesh.axis_names != (axis,):
+            raise ValueError(f"make_dp_train_step wants a 1-D {axis!r} mesh, got {mesh.axis_names}")
+        lanes = mesh.lanes()
+        home = lanes[0].device
+
+        def fn(state: TrainState, cams_b, gts_b):
+            n = len(cams_b)
+            if n == 0 or n % len(lanes):
+                raise ValueError(
+                    f"camera batch ({n}) must be a multiple of the mesh size ({len(lanes)})"
+                )
+            state = to_device(state, home)
+            copies = {home: state}
+            for lane in lanes:
+                if lane.device not in copies:
+                    copies[lane.device] = to_device(state, lane.device)
+
+            def reduce(parts):
+                """[(loss, aux, grads, g2d, denom)] -> one: the mean of the
+                first three, the SUM of the densify statistics (they
+                accumulate per view)."""
+                mean = lambda xs: torch.stack(xs, dim=0).mean(dim=0)
+                total = lambda xs: torch.stack(xs, dim=0).sum(dim=0)
+                return (mean([p[0] for p in parts]),
+                        {k: mean([p[1][k] for p in parts]) for k in parts[0][1]},
+                        {g: mean([p[2][g] for p in parts]) for g in GROUPS},
+                        total([p[3] for p in parts]), total([p[4] for p in parts]))
+
+            def local(lane, cut):
+                st = copies[lane.device]
+                views = []
+                for i in range(cut.start, cut.stop):
+                    cam = to_device(cams_b[i], lane.device)
+                    loss, aux, pg, og = self._loss_and_grads(st, cam, gts_b[i].to(lane.device))
+                    views.append((loss, aux, pg, *self._densify_stats(og)))
+                return to_device(reduce(views), home)
+
+            # over each lane's cameras, then over the lanes in lane order
+            loss, aux, pg, g2d, denom = reduce(map_lanes(lanes, local, lane_slices(n, len(lanes))))
+            with record_function("train_step/adam"):
+                new_state = self._apply_grads(state, pg, g2d, denom)
+            return new_state, {"loss": loss, **aux}
+
+        return fn
 
     def _project_with_offset(self, cloud, cam, mean2d_offset, active_deg: int):
         """Projection with the SH bands above ``active_deg`` zeroed and a
@@ -439,10 +502,13 @@ class GSTrainer:
         mesh=None,
     ):
         """``iterations`` steps from ``state``, densifying and resetting
-        opacity on the global step.  ``mesh`` (data-parallel camera batches)
-        is not ported yet and raises."""
+        opacity on the global step.  With ``mesh`` every iteration renders a
+        mesh-size camera batch data-parallel (``make_dp_train_step``: one
+        update per iteration)."""
+        dp_step = None
         if mesh is not None:
-            self.make_dp_train_step(mesh)
+            dp_step = self.make_dp_train_step(mesh, axis=mesh.axis_names[0])
+            n_dev = mesh.size
         c = self.config
         iterations = iterations or c.iterations
         rng = np.random.default_rng(seed)
@@ -453,8 +519,14 @@ class GSTrainer:
         base_step = int(state.step)
         for it in range(1, iterations + 1):
             gstep = base_step + it
-            idx = int(rng.integers(0, len(cameras)))
-            state, metrics = self.train_step(state, cameras[idx], gt_images[idx])
+            if dp_step is not None:
+                idx = rng.choice(len(cameras), n_dev, replace=n_dev > len(cameras))
+                state, metrics = dp_step(
+                    state, [cameras[i] for i in idx], [gt_images[i] for i in idx]
+                )
+            else:
+                idx = int(rng.integers(0, len(cameras)))
+                state, metrics = self.train_step(state, cameras[idx], gt_images[idx])
             if (
                 c.densify_from_iter <= gstep <= c.densify_until_iter
                 and gstep % c.densification_interval == 0

@@ -41,6 +41,9 @@ class SceneStats:
 
     path: Optional[str] = None
     records: list = field(default_factory=list)
+    # sharded runs: one entry per batch (its scene ids and stage seconds);
+    # kept in memory only, the JSONL sink holds the per-scene records
+    batches: list = field(default_factory=list)
 
     def record(self, scene_id: int, **metrics) -> dict:
         rec = {"scene_id": scene_id, "time": time.time(), **metrics}

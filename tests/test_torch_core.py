@@ -215,6 +215,10 @@ def test_port_imports_no_jax():
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'flax', 'pegasus_tpu', 'optax', 'orbax', 'imageio'))\n"
         "assert not bad, bad\n"
         "assert len(names) > 20, names\n"
+        "want = {'parallel.mesh', 'parallel.sharded_render', 'parallel.generation', 'parallel.scene_batch',\n"
+        "        'ops.validate', 'assets.ycb_objects', 'assets.cup_noodle_dataset', 'assets.dataset_envs',\n"
+        "        'assets.in_the_wild_dataset'}\n"
+        "assert {'pegasus_tpu_torch.' + w for w in want} <= set(names), names\n"
         "assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == flags\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
     )

@@ -45,6 +45,7 @@ from pegasus_tpu_torch.config import GenerationConfig
 from pegasus_tpu_torch.eval import check_bop_dataset
 from pegasus_tpu_torch.generate import run_generation, write_targets_bop19
 from pegasus_tpu_torch.interop import CLOUD_FIELDS, cloud_from_numpy
+from pegasus_tpu_torch.parallel.mesh import make_mesh
 from pegasus_tpu_torch.parallel.scene_batch import (generate_scene_variants,
                                                     variant_start_states)
 from pegasus_tpu_torch.pegasus import PEGASUS
@@ -252,15 +253,21 @@ def test_cli_generates_a_dataset(root, tmp_path, monkeypatch):
         tgen.main(["--config", str(tmp_path / "cfg.json"), "--envs", "Asphalt", "--objects", "CupNoodle04"])
 
 
-def test_sharded_generation_raises(root, tmp_path):
-    env, objs = _assets(root, Asset)
-    config = _config(GenerationConfig, root, tmp_path / "sharded")
-    with pytest.raises(NotImplementedError, match="M11"):
-        run_generation(config, [env], objs, mesh=object(), device="cpu")
+def test_sharded_generation_raises(root, tmp_path, monkeypatch):
+    """The sharded path is ported: ``--sharded --device cpu`` writes a scene
+    on one CPU lane.  What still raises: a mesh over the cards without a card."""
+    config = _config(GenerationConfig, root, tmp_path / "sharded", num_scenes=1, simulation_steps=20,
+                     dataset_name="cli_sharded")
     config.save(tmp_path / "cfg.json")
-    with pytest.raises(NotImplementedError, match="M11"):
-        tgen.main(["--config", str(tmp_path / "cfg.json"), "--sharded", "--device", "cpu"])
-    assert not (tmp_path / "sharded").exists()
+    tgen.main(["--config", str(tmp_path / "cfg.json"), "--sharded", "--device", "cpu",
+               "--envs", "Asphalt", "--objects", "CupNoodle04", "CupNoodle07"])
+    scene = tmp_path / "sharded" / "cli_sharded" / "train" / "000001"
+    assert len(json.loads((scene / "scene_gt.json").read_text())) == 2
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tgen.main(["--config", str(tmp_path / "cfg.json"), "--sharded"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh(axis_names=("scene",))
 
 
 def test_entry_points_default_to_the_card(root, tmp_path, monkeypatch):

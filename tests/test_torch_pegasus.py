@@ -177,9 +177,11 @@ def test_refusals(recorded, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PEGASUS(gs_env_list=[env], gs_object_list=objs, **cfg)  # default device="cuda"
-    for option in ("publish2gui", "compact_readback"):
-        with pytest.raises(NotImplementedError, match="M13"):
-            PEGASUS(gs_env_list=[env], gs_object_list=objs, device="cpu", **cfg, **{option: True})
+    with pytest.raises(NotImplementedError, match="M13"):
+        PEGASUS(gs_env_list=[env], gs_object_list=objs, device="cpu", **cfg, publish2gui=True)
+    # compact_readback is ported (tests/test_torch_readback.py): it constructs
+    assert PEGASUS(gs_env_list=[env], gs_object_list=objs, device="cpu", **cfg,
+                   compact_readback=True).compact_readback
     # physics is ported: the engine init_bullet builds takes the PEGASUS's
     # device, so with the default device and no card it is the constructor
     # above that refuses, and on the CPU a drop runs

@@ -307,9 +307,20 @@ def test_read_png_matches_imageio(tmp_path, shape):
 
 
 def test_read_png_rejects_what_it_does_not_decode(tmp_path):
-    write_png(tmp_path / "depth.png", np.arange(12, dtype=np.uint16).reshape(3, 4))
-    with pytest.raises(ValueError, match="bit depth 16"):
-        read_png(tmp_path / "depth.png")
+    """16-bit samples decode (the writer's depth PNGs, which the BOP scorer
+    reads back); palette PNGs and non-PNG files are refused."""
+    depth = (np.random.default_rng(0).random((7, 9)) * 65535).astype(np.uint16)
+    write_png(tmp_path / "depth.png", depth)
+    imageio.imwrite(tmp_path / "depth_imageio.png", depth)
+    for name in ("depth.png", "depth_imageio.png"):
+        got = read_png(tmp_path / name)
+        assert got.dtype == np.uint16
+        np.testing.assert_array_equal(got, depth, err_msg=name)
+    palette = bytearray(_png_with_filters(np.zeros((3, 4), np.uint8), [0]))
+    palette[25] = 3  # IHDR colour type: palette (the CRC is not checked)
+    (tmp_path / "palette.png").write_bytes(bytes(palette))
+    with pytest.raises(ValueError, match="colour type 3"):
+        read_png(tmp_path / "palette.png")
     (tmp_path / "x.png").write_bytes(b"not a png")
     with pytest.raises(ValueError, match="not a PNG"):
         read_png(tmp_path / "x.png")
