@@ -44,7 +44,11 @@ Phases, each of which fails the run (nonzero exit) on any miss:
    pile-up of splats on a 128x64 image whose tiles hold 10 C + 37, C - 1,
    C and C + 1 entries (most tiles none): the forward kernel against its
    plain version, K3 against its plain version, and two launches of each
-   kernel bitwise equal;
+   kernel bitwise equal.  And at the training shape, the backward's
+   scatter of per-entry gradients to splats (a segmented sum in a fixed
+   order): bitwise repeatable over 5 runs, equal to a float64 sum on the
+   host to 1e-6 of the largest sum; timed, and the kernels it launches
+   named;
 8. training main path: ``train_gaussian_splatting_wrapper`` on a synthetic
    COLMAP scene (28 views at 512x512 of the 150k-splat box, ground truth
    rendered by ``rasterize``, 40,000 seed points, capacity 200,000), 600
@@ -52,10 +56,11 @@ Phases, each of which fails the run (nonzero exit) on any miss:
    launch once per iteration, the loss must fall, the alive count must
    exceed the seed count, both PLYs must load back and the PSNR over four
    training views must beat the seed cloud's.  Prints ms/step of whole
-   ``train_step`` calls and peak device memory, and with ``--profile`` a
-   ``torch.profiler`` trace of 20 steps (device busy share, launches per
-   step, each kernel's share of device time, and the device time of each
-   stage of ``train_step`` from its ``record_function`` ranges);
+   ``train_step`` calls and peak device memory, and a ``torch.profiler``
+   trace of 20 steps (device busy share, launches per step, each kernel's
+   share of device time, and the device time of each stage of
+   ``train_step`` from its ``record_function`` ranges, the backward's
+   among them);
 9. physics on the card: the smoke scene (``asphalt`` + the six
    ``SMOKE_OBJECTS``, ``init_bullet(random=False)``, 310 steps).  The
    captured step replayed 310 times must equal the same steps launched op
@@ -115,15 +120,36 @@ Phases, each of which fails the run (nonzero exit) on any miss:
    51 ``models_info`` entries, gt-info, NDDS, ``write_targets_bop19``,
    ``check_bop_dataset`` clean, and ``score_bop19`` with the written poses
    as estimates AR >= 0.99 (mssd and mspd exactly 1).  Prints the seconds of
-   asset building, generation and scoring.
+   asset building, generation and scoring;
+16. asset building and viewing at the training shape: (a) the
+   hemispherical object recipe (``hemispherical_object_reconstruction``)
+   over a scan of the training box laid out as ``object/<name>/up``, 600
+   iterations on the card, with a stub ``colmap`` on PATH that installs the
+   scan's sparse model (this machine has no COLMAP; SfM is stubbed): every
+   stage recorded, both PLYs written, one backward launch per iteration and
+   one forward launch per iteration and per evaluation render, the loss
+   down and the PSNR over four views above the seed cloud's, a mesh of more
+   than 100 faces named by the URDF, the cleaned cloud moved by the URDF's
+   translation to 1e-5; prints each stage's seconds; (b) the SIBR wire
+   viewer (``network_gui.gaussian_splatting_viewer``) in a thread serving 20
+   orbit views at 640x480 to a client socket, each frame bitwise equal to
+   ``rasterize`` of its camera, then ``viewer.render_rgb_u8`` of the same
+   views; prints frames/s; (c) the static replayed scene with
+   ``publish2gui=True`` answering 5 queued requests, byte-identical to a
+   run without the GUI, forward launches = frames written + frames served;
+   (d) ``train_gaussian_splatting_wrapper(gui=True)`` for 20 iterations with
+   a client asking for 3 frames, launches 20 + 3 forward and 20 backward,
+   the parameters bitwise equal to a run without the GUI; (e) the
+   reference-signature render wrappers over phase 5's dataset, equal to one
+   ``render_frame`` / ``rasterize`` bitwise.
 
 After phase 5 the compact-readback case runs the static replayed scene once
 more with and without ``compact_readback``: every PNG and JSON byte-identical;
 prints the bytes moved per frame both ways and frames/s.
 
 ``--from-phase N`` (N > 3) skips phases 3 to N - 1 while a later phase is
-worked on (12: the build, the compact-readback case and phases 12-15); such
-a run prints no result lines.  The last two lines of a
+worked on (12: the build, the compact-readback case and phases 12-16; 16:
+the build and phase 16); such a run prints no result lines.  The last two lines of a
 whole run are one JSON object for the kernels and one for the device; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -427,7 +453,8 @@ def _read_png(path):
 
 
 def scene_pegasus(data: Path, out: Path, name: str, mode: str, num_cameras: int,
-                  n_interp: int, device, compact_readback: bool = False):
+                  n_interp: int, device, compact_readback: bool = False,
+                  publish2gui: bool = False):
     """A PEGASUS replaying the committed trajectory, set up up to
     ``init_start_position`` (the loading is not part of any timing)."""
     from pegasus_tpu_torch.assets.registry import Asset
@@ -444,6 +471,7 @@ def scene_pegasus(data: Path, out: Path, name: str, mode: str, num_cameras: int,
         render_width=WIDTH, num_cameras=num_cameras, simulation_steps=310,
         num_camera_interpolation_steps=n_interp, dataset_base_path=str(out),
         seed=3, QUIET=True, device=device, compact_readback=compact_readback,
+        publish2gui=publish2gui,
     )
     peg.physics_file = str(TRAJECTORY)
     peg.selected_env_name = SMOKE_ENV[0]
@@ -697,6 +725,40 @@ def backward_vs_plain(label, bins, width, height, k, card):
     return out
 
 
+def scatter_to_splats(label, bins, card) -> dict:
+    """Phase 7: the backward's scatter of per-entry gradients to splats
+    (``entry_grads_to_splats``, a segmented sum in a fixed order) on seeded
+    rows at one shape: bitwise repeatable over 5 runs, equal to a float64
+    sum on the host to 1e-6 of the largest |sum|; timed, and the kernels it
+    launches named."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pegasus_tpu_torch.ops.composite_vjp import N_GRAD, entry_grads_to_splats
+
+    dev = bins.params.device
+    g = torch.randn((N_GRAD, bins.entry_splat.numel()),
+                    generator=torch.Generator().manual_seed(11)).to(dev)
+    runs = [entry_grads_to_splats(bins, g) for _ in range(5)]
+    torch.cuda.synchronize()
+    require(all(torch.equal(runs[0], x) for x in runs[1:]), f"{label}: the segmented sum differs between runs")
+    ref = torch.zeros(N_GRAD, bins.params.shape[1], dtype=torch.float64)
+    ref.index_add_(1, bins.entry_splat.cpu().long(), g.cpu().double())
+    diff = float((runs[0][:N_GRAD].cpu().double() - ref).abs().max())
+    scale = float(ref.abs().max())
+    require(diff <= 1e-6 * scale, f"{label}: segmented sum vs float64 host sum {diff} (max |sum| {scale})")
+    ms = cuda_ms(lambda: entry_grads_to_splats(bins, g), 20)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        entry_grads_to_splats(bins, g)
+        torch.cuda.synchronize()
+    kernels = sorted({a.key for a in prof.key_averages() if a.device_type == DeviceType.CUDA})
+    print(f"scatter to splats {label}: entries={bins.entry_splat.numel()} segmented sum {ms:.4f} ms, "
+          f"bitwise repeatable over 5 runs, max|diff| {diff:.3e} against a float64 host sum of "
+          f"max|sum| {scale:.3e}; launches {kernels} card={card}", flush=True)
+    return {"ms": ms, "max_abs_err": diff}
+
+
 def long_segment_stress(device, k, card):
     """Phase 7's stress case: splats piled onto a few tiles of a 128x64
     image (tile 0 holds 10 C + 37 entries, tiles 1-3 C - 1, C and C + 1,
@@ -741,41 +803,10 @@ def training_scene(root: Path, device):
     150k-splat box at 512x512 (ground truth rendered by the port's
     ``rasterize``) and 40,000 seed points drawn from the box's splats with
     5 mm of noise, coloured by their splats' DC colour."""
-    import numpy as np
-    import torch
+    from pegasus_tpu_torch.testing import write_colmap_scan
 
-    from pegasus_tpu_torch.camera import Camera
-    from pegasus_tpu_torch.io import colmap as cio
-    from pegasus_tpu_torch.io.png import write_png
-    from pegasus_tpu_torch.ops.rasterize_cuda import rasterize
-    from pegasus_tpu_torch.testing import make_colmap_hemisphere
-    from pegasus_tpu_torch.utils import sh as shlib
-    from pegasus_tpu_torch.utils.pose import focal2fov
-
-    gt = train_box_cloud(device)
-    focal = TRAIN_SIZE / (2 * math.tan(math.radians(55) / 2))  # 55 degree field of view
-    cams, images = make_colmap_hemisphere(n_images=28, radius=0.9, width=TRAIN_SIZE,
-                                          height=TRAIN_SIZE, focal=focal)
-    sparse = root / "sparse" / "0"
-    sparse.mkdir(parents=True)
-    cio.write_cameras_binary(cams, sparse / "cameras.bin")
-    cio.write_images_binary(images, sparse / "images.bin")
-    rng = np.random.default_rng(3)
-    idx = rng.choice(gt.num_splats, SEED_POINTS, replace=False)
-    xyz = gt.xyz[idx].cpu().numpy() + rng.normal(size=(SEED_POINTS, 3)) * 0.005
-    rgb = (np.clip(shlib.sh2rgb(gt.f_dc[idx, 0].cpu().numpy()), 0, 1) * 255).astype(np.uint8)
-    none = np.zeros(0, np.int32)
-    cio.write_points3d_binary(
-        {i + 1: cio.ColmapPoint3D(i + 1, xyz[i], rgb[i], 0.1, none, none) for i in range(SEED_POINTS)},
-        sparse / "points3D.bin",
-    )
-    (root / "images").mkdir()
-    fov = focal2fov(focal, TRAIN_SIZE)
-    with torch.no_grad():
-        for im in images.values():
-            cam = Camera.from_colmap(im.qvec, im.tvec, fov, fov, TRAIN_SIZE, TRAIN_SIZE, device=device)
-            rgb_img = torch.clamp(rasterize(gt, cam, max_objects=1).rgb, 0, 1)
-            write_png(root / "images" / im.name, (rgb_img * 255).to(torch.uint8).cpu().numpy())
+    write_colmap_scan(root, train_box_cloud(device), TRAIN_SIZE, n_images=28, fov_deg=55.0,
+                      radius=0.9, n_seeds=SEED_POINTS, seed=3)
 
 
 def eval_views(cloud, cams, gts):
@@ -823,9 +854,10 @@ def stage_split(prof, prefix: str):
 
 
 def profile_training(trainer, state, cams, gts, card, steps: int = 20):
-    """``--profile``: a torch.profiler trace of ``steps`` training steps,
-    with the device time of each of ``train_step``'s stages; and the host
-    cost of one of its ``record_function`` ranges with no profiler on."""
+    """A torch.profiler trace of ``steps`` training steps, with the device
+    time of each of ``train_step``'s stages (the backward's among them);
+    and the host cost of one of its ``record_function`` ranges with no
+    profiler on."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -866,7 +898,7 @@ def profile_training(trainer, state, cams, gts, card, steps: int = 20):
     print(avgs.table(sort_by="self_device_time_total", row_limit=15), flush=True)
 
 
-def training_main_path(tmp: Path, device, card: str, profile_steps: bool):
+def training_main_path(tmp: Path, device, card: str):
     """Phase 8: the training wrapper on the synthetic scene; returns the two
     kernels' launch counts over its run."""
     import numpy as np
@@ -943,8 +975,7 @@ def training_main_path(tmp: Path, device, card: str, profile_steps: bool):
     print(f"train_step: {step_ms:.3f} ms/step (host clock over 20 steps ending in synchronize, "
           f"{int(state.cloud.alive.sum())} alive of {capacity}, {TRAIN_SIZE}x{TRAIN_SIZE}) card={card}",
           flush=True)
-    if profile_steps:
-        profile_training(trainer, state, step_cams, step_gts, card)
+    profile_training(trainer, state, step_cams, step_gts, card)
     return launches
 
 
@@ -1655,14 +1686,393 @@ def dress_rehearsal_phase(tmp: Path, device, card: str) -> int:
     return launches
 
 
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _connect(port: int, deadline_s: float = 120.0):
+    """A client socket to a server on localhost, retried until it listens."""
+    import socket
+
+    end = time.perf_counter() + deadline_s
+    while True:
+        try:
+            return socket.create_connection(("127.0.0.1", port), timeout=120)
+        except OSError:
+            require(time.perf_counter() < end, f"no server on port {port}")
+            time.sleep(0.02)
+
+
+def _recv_exact(sock, n: int) -> bytes:
+    buf = b""
+    while len(buf) < n:
+        chunk = sock.recv(n - len(buf))
+        require(chunk, "the GUI server closed the connection mid-message")
+        buf += chunk
+    return buf
+
+
+def _read_reply(sock, nbytes: int):
+    """(image bytes, verify string) of one reply of the SIBR wire protocol."""
+    img = _recv_exact(sock, nbytes)
+    n = int.from_bytes(_recv_exact(sock, 4), "little")
+    return img, _recv_exact(sock, n).decode("ascii")
+
+
+def _launches():
+    from pegasus_tpu_torch.ops import composite_vjp, rasterize_cuda
+
+    return (rasterize_cuda.composite_tiles.launches,
+            composite_vjp.composite_tiles_backward.launches)
+
+
+def _zero_launches():
+    from pegasus_tpu_torch.ops import composite_vjp, rasterize_cuda
+
+    rasterize_cuda.composite_tiles.launches = 0
+    composite_vjp.composite_tiles_backward.launches = 0
+
+
+def recipe_on_card(tmp: Path, device, card: str):
+    """Phase 16 (a): ``hemispherical_object_reconstruction`` on the card
+    over a synthetic scan of the training box; returns (asset, scan
+    directory, launches {forward, backward})."""
+    import numpy as np
+    import torch
+
+    from pegasus_tpu_torch.assets.registry import Asset
+    from pegasus_tpu_torch.gs.ply import load_gs_ply, read_ply_vertex_data
+    from pegasus_tpu_torch.io.mesh import load_mesh
+    from pegasus_tpu_torch.reconstruction import recipes
+    from pegasus_tpu_torch.scene.dataset import load_colmap_scene
+    from pegasus_tpu_torch.testing import install_colmap_stub
+    from pegasus_tpu_torch.training.trainer import TrainConfig, init_from_points
+
+    scan, data = tmp / "scan16", tmp / "assets16"
+    t0 = time.perf_counter()
+    training_scene(scan, device)  # 28 views of the 150k box, 40,000 seed points
+    up = data / "object" / "scanned_box" / "up"
+    up.mkdir(parents=True)
+    (scan / "images").rename(up / "images")
+    install_colmap_stub(tmp / "bin16")
+    print(f"recipe scan written in {time.perf_counter() - t0:.2f} s; the SfM stage is stubbed "
+          f"(no COLMAP on this machine: the stub installs the scan's sparse model)", flush=True)
+
+    seconds = {}
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t
+            if name == "cleaning":
+                seconds["translation"] = np.asarray(kwargs["t"], np.float64)
+            return out
+        return run
+
+    asset = Asset(OBJECT_NAME="scanned_box", ID=901, dataset_path=str(data), SCALE=False, ALPHA=0.05)
+    patched = [(recipes.COLMAPReconstruction, "run", "sfm_stub"), (recipes, "_train_gs", "training"),
+               (recipes.URDFGenerator, "generate", "urdf"), (recipes, "gs_cleaning", "cleaning")]
+    saved_env = {k: os.environ.get(k) for k in ("PATH", "COLMAP_STUB_MODEL")}
+    originals = [getattr(obj, attr) for obj, attr, _ in patched]
+    os.environ["PATH"] = f"{tmp / 'bin16'}{os.pathsep}{os.environ['PATH']}"
+    os.environ["COLMAP_STUB_MODEL"] = str(scan / "sparse" / "0")
+    _zero_launches()
+    t0 = time.perf_counter()
+    try:
+        for (obj, attr, name), fn in zip(patched, originals):
+            setattr(obj, attr, timed(name, fn))
+        recipes.hemispherical_object_reconstruction(asset, train_iterations=TRAIN_ITERATIONS,
+                                                    device=device)
+    finally:
+        for (obj, attr, _), fn in zip(patched, originals):
+            setattr(obj, attr, fn)
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    wall = time.perf_counter() - t0
+    fwd_train, bwd = _launches()
+    require(bwd == TRAIN_ITERATIONS and fwd_train == TRAIN_ITERATIONS,
+            f"recipe training launches forward {fwd_train} backward {bwd} for {TRAIN_ITERATIONS}")
+
+    stages = json.loads((up / "stages.json").read_text())
+    require(stages == {"feature_extractor": True, "matcher": True, "mapper": True}, stages)
+    cleaned = load_gs_ply(asset.gaussian_point_cloud_path(TRAIN_ITERATIONS), device=device)
+    o3d = read_ply_vertex_data(asset.gs_o3d_point_cloud_path(TRAIN_ITERATIONS))
+    require(cleaned.num_splats == len(o3d["x"]) > 0,
+            f"trained splats {cleaned.num_splats} / o3d {len(o3d['x'])}")
+    mesh = load_mesh(asset.urdf_obj_path)
+    urdf = Path(asset.urdf_file_path).read_text()
+    require(len(mesh.faces) > 100 and "scanned_box.obj" in urdf, (len(mesh.faces), urdf[:200]))
+    t = seconds.pop("translation")
+    moved = cleaned.xyz.double().mean(0).cpu().numpy() - np.stack([o3d[k] for k in "xyz"], 1).mean(0)
+    require(np.abs(moved - t).max() <= 1e-5, f"cleaning moved the centroid by {moved}, not {t}")
+
+    # the trained cloud (the cleaned one moved back) against the seed cloud
+    scene = load_colmap_scene(str(up), device=device)
+    views = [0, 7, 14, 21]
+    cams = [scene["cameras"][i] for i in views]
+    gts = [torch.tensor(scene["images"][i], device=device) for i in views]
+    seed = init_from_points(scene["points"], scene["colors"], TrainConfig(capacity=TRAIN_CAPACITY),
+                            device=device)
+    loss0, db0 = eval_views(seed, cams, gts)
+    loss1, db1 = eval_views(cleaned.translated(-t), cams, gts)
+    require(loss1 < loss0 and db1 > db0, f"recipe: loss {loss0} -> {loss1}, PSNR {db0} -> {db1}")
+    fwd, _ = _launches()
+    require(fwd == TRAIN_ITERATIONS + 2 * len(views), f"recipe forward launches {fwd}")
+    print(f"phase 16a hemispherical recipe: {TRAIN_ITERATIONS} iterations, {wall:.3f} s in all; stage s "
+          f"{json.dumps({k: round(v, 3) for k, v in seconds.items()})} (sfm_stub: the stubbed COLMAP; "
+          f"urdf: scipy Delaunay alpha shape on the host); stages {sorted(stages)}; splats "
+          f"{SEED_POINTS} -> {cleaned.num_splats}; mesh {len(mesh.vertices)} vertices "
+          f"{len(mesh.faces)} faces; loss {loss0:.5f} -> {loss1:.5f}, PSNR over 4 training views "
+          f"{db0:.3f} -> {db1:.3f} dB; centroid moved by {np.round(moved, 6).tolist()}; launches "
+          f"forward {fwd} backward {bwd} card={card}", flush=True)
+    return asset, up, {"forward": fwd, "backward": bwd}
+
+
+def wire_viewer_on_card(ply: str, device, card: str) -> int:
+    """Phase 16 (b): ``network_gui.gaussian_splatting_viewer`` in a thread
+    serving 20 orbit views at 640x480 to a client socket: each frame equals
+    the uint8 of ``rasterize`` of the same camera bitwise, the verify string
+    is the ply path, 20 forward launches; then the viewer module's own
+    per-view render of the same views.  Returns the forward launches."""
+    import threading
+
+    import torch
+
+    from pegasus_tpu_torch import network_gui as ng
+    from pegasus_tpu_torch.gs.ply import load_gs_ply
+    from pegasus_tpu_torch.ops.rasterize_cuda import rasterize
+    from pegasus_tpu_torch.viewer import orbit_cameras, render_rgb_u8
+
+    n = 20
+    cams = orbit_cameras(center=(0.0, 0.0, 0.0), radius=0.9, elevation_deg=30.0, n_views=n,
+                         width=WIDTH, height=HEIGHT, device=device)
+    port = _free_port()
+    served = {}
+    _zero_launches()
+    th = threading.Thread(target=lambda: served.update(n=ng.gaussian_splatting_viewer(
+        ply, ip="127.0.0.1", port_=port, max_frames=n, device=device)), daemon=True)
+    th.start()
+    client = _connect(port)
+    replies = []
+    try:
+        t0 = time.perf_counter()
+        for cam in cams:
+            client.sendall(ng.request_message(cam))
+            replies.append(_read_reply(client, WIDTH * HEIGHT * 3))
+        wall = time.perf_counter() - t0
+    finally:
+        client.close()
+        th.join(timeout=120)
+    served_launches = _launches()[0]
+    require(served.get("n") == n and served_launches == n,
+            f"viewer served {served.get('n')} frames with {served_launches} forward launches")
+    cloud = load_gs_ply(ply, device=device)
+    with torch.no_grad():
+        for cam, (img, verify) in zip(cams, replies):
+            require(verify == ply, f"verify string {verify!r}")
+            require(img == ng.frame_bytes(rasterize(cloud, cam, max_objects=1).rgb),
+                    "a served frame differs from rasterize of its camera")
+    _zero_launches()
+    t0 = time.perf_counter()
+    views = [render_rgb_u8(cloud, cam, (0.0, 0.0, 0.0)) for cam in cams]
+    view_wall = time.perf_counter() - t0
+    view_launches = _launches()[0]
+    require(view_launches == n, f"viewer per-view renders launched {view_launches}")
+    for cam, (img, _), view in zip(cams, replies, views):
+        require(view.tobytes() == img, "viewer.render_rgb_u8 differs from the served frame")
+    print(f"phase 16b wire viewer: {n} orbit frames at {WIDTH}x{HEIGHT} served in {wall:.3f} s "
+          f"({n / wall:.3f} frames/s, client round trips), each bitwise equal to rasterize; "
+          f"viewer.render_rgb_u8 {n / view_wall:.3f} views/s; forward launches {served_launches} + "
+          f"{view_launches} card={card}", flush=True)
+    return served_launches + view_launches
+
+
+def publish2gui_on_card(data: Path, out: Path, device, card: str) -> int:
+    """Phase 16 (c): the static replayed scene of phase 5 with
+    ``publish2gui=True`` and a client asking for 5 frames at 640x480: 5
+    answered, the BOP tree byte-identical to a run without the GUI,
+    forward launches = frames written + frames served.  Returns the
+    forward launches of the GUI run."""
+    import filecmp
+    import threading
+
+    from pegasus_tpu_torch import network_gui as ng
+    from pegasus_tpu_torch.pegasus import PEGASUS
+
+    n_req = 5
+    peg_plain, n_frames, _ = run_scene(data, out, "gui_off", "static", 10, 4, device)
+    del peg_plain
+    old_port = PEGASUS.PORT
+    PEGASUS.PORT = 0  # ephemeral
+    try:
+        peg = scene_pegasus(data, out, "gui_on", "static", 10, 4, device, publish2gui=True)
+        client = _connect(ng.listener.getsockname()[1])
+        cam = peg.viewport_cam_list[0]
+        client.sendall(ng.request_message(cam) * n_req)  # queued before the frame loop
+        replies = []
+        reader = threading.Thread(target=lambda: replies.extend(
+            _read_reply(client, WIDTH * HEIGHT * 3) for _ in range(n_req)), daemon=True)
+        reader.start()
+        _zero_launches()
+        t0 = time.perf_counter()
+        peg.generate_dataset(MODALITIES, save_bop=True, save_video=False)
+        peg.save2bop()
+        wall = time.perf_counter() - t0
+        launches = _launches()[0]
+        reader.join(timeout=120)
+        client.close()
+    finally:
+        PEGASUS.PORT = old_port
+        ng.close()
+    require(len(replies) == n_req and all(v == str(data) for _, v in replies),
+            f"publish2gui answered {len(replies)} of {n_req}")
+    require(launches == n_frames + n_req, f"forward launches {launches} for {n_frames} + {n_req}")
+    a, b = (out / name / "train" / "000001" for name in ("gui_off", "gui_on"))
+    files = sorted(str(p.relative_to(a)) for p in a.rglob("*") if p.is_file())
+    require(files == sorted(str(p.relative_to(b)) for p in b.rglob("*") if p.is_file()),
+            "the GUI run wrote other files")
+    _, mismatch, errors = filecmp.cmpfiles(a, b, files, shallow=False)
+    require(not mismatch and not errors, f"files differ with the GUI on: {mismatch[:5]} {errors[:5]}")
+    print(f"phase 16c publish2gui: {n_req} of {n_req} requests answered during a {n_frames}-frame "
+          f"static scene ({n_frames / wall:.3f} frames/s with the GUI, PNG writes included), "
+          f"{len(files)} files byte-identical to the run without it, forward launches {launches} "
+          f"card={card}", flush=True)
+    return launches
+
+
+def trainer_gui_on_card(scene_dir: Path, tmp: Path, device, card: str):
+    """Phase 16 (d): ``train_gaussian_splatting_wrapper(gui=True)`` for 20
+    iterations on the recipe's scan with a client asking for 3 frames: 3
+    answered, 20 backward and 20 + 3 forward launches, the trained
+    parameters bitwise equal to a 20-iteration run without the GUI.
+    Returns the GUI run's launches {forward, backward}."""
+    import threading
+
+    import torch
+
+    from pegasus_tpu_torch import network_gui as ng
+    from pegasus_tpu_torch.camera import Camera
+    from pegasus_tpu_torch.training.trainer import GROUPS, train_gaussian_splatting_wrapper
+
+    iters, n_req = 20, 3
+    kw = dict(TEST_ITERATION=(iters,), SAVE_ITERATION=(iters,), iterations=iters,
+              capacity=TRAIN_CAPACITY, device=device)
+    port = _free_port()
+    result = {}
+    _zero_launches()
+    th = threading.Thread(target=lambda: result.update(state=train_gaussian_splatting_wrapper(
+        str(scene_dir), str(tmp / "gui_model"), gui=True, ip="127.0.0.1", port=port, **kw)),
+        daemon=True)
+    th.start()
+    client = _connect(port, deadline_s=300)
+    cam = Camera.look_at((0.6, 0.45, 0.5), (0, 0, 0), (0, 0, 1), math.radians(55), math.radians(45),
+                         WIDTH, HEIGHT, device=device)
+    replies = []
+    try:
+        for i in range(n_req):  # the last request hands the loop back to training
+            client.sendall(ng.request_message(cam, train=i == n_req - 1))
+            replies.append(_read_reply(client, WIDTH * HEIGHT * 3))
+    finally:
+        client.close()
+        th.join(timeout=600)
+    require(not th.is_alive() and "state" in result, "the GUI training run did not finish")
+    fwd, bwd = _launches()
+    require(len(replies) == n_req and all(v == str(tmp / "gui_model") for _, v in replies),
+            f"trainer GUI answered {len(replies)} of {n_req}")
+    require(bwd == iters and fwd == iters + n_req, f"GUI training launches forward {fwd} backward {bwd}")
+    plain = train_gaussian_splatting_wrapper(str(scene_dir), str(tmp / "plain_model"), **kw)
+    gui_state = result["state"]
+    same = all(torch.equal(getattr(gui_state.cloud, g), getattr(plain.cloud, g)) for g in GROUPS)
+    same = same and all(torch.equal(gui_state.mu[g], plain.mu[g]) for g in GROUPS)
+    require(same, "the GUI run's parameters differ from the run without it")
+    print(f"phase 16d trainer GUI: {n_req} of {n_req} frames answered during {iters} iterations at "
+          f"{TRAIN_SIZE}x{TRAIN_SIZE}, parameters and Adam moments bitwise equal to the run without "
+          f"the GUI; launches forward {fwd} backward {bwd} card={card}", flush=True)
+    return {"forward": fwd, "backward": bwd}
+
+
+def render_wrappers_on_card(data: Path, out: Path, device, card: str) -> int:
+    """Phase 16 (e): the reference-signature render wrappers over phase 5's
+    dataset (the 150k environment and the six 10k objects, posed at the
+    static scene's step) at one of its cameras: the three mask wrappers
+    equal one ``render_frame`` of ``_compose``'s scene bitwise, and
+    ``render_rgb_and_depth`` one ``rasterize`` call.  Returns the forward
+    launches of the four wrapper calls."""
+    import torch
+
+    from pegasus_tpu_torch.gs.cloud import GaussianCloud
+    from pegasus_tpu_torch.ops import render as R
+    from pegasus_tpu_torch.ops.rasterize_cuda import rasterize
+    from pegasus_tpu_torch.scene.composition import pose_scene
+
+    peg = scene_pegasus(data, out, "wrappers", "static", 10, 4, device)
+    posed = pose_scene(peg.template, *peg._body_poses_at(peg._initial_step))
+    part = lambda k: GaussianCloud(**{f: getattr(posed, f)[posed.object_id == k]
+                                      for f in GaussianCloud.__dataclass_fields__})
+    env = part(0)
+    objs = {k: part(k) for k in range(1, peg.template.num_bodies)}
+    colors, cam = peg._semantic_colors_dev, peg.viewport_cam_list[0]
+    scene = R._compose(env, objs)[0]
+    _zero_launches()
+    with torch.no_grad():
+        vis, seg = R.render_visib_mask(cam, env, objs, colors)
+        sil = R.render_silhouette_mask(cam, objs, env, color_set=colors)
+        sem = R.render_semanticsegmentation_mask(cam, env, objs, colors)
+        rgb, depth = R.render_rgb_and_depth(cam, scene)
+        launches = _launches()[0]
+        frame = R.render_frame(scene, cam, colors)
+        plain = rasterize(scene.with_object_id(0), cam, max_objects=1)
+    require(launches == 4, f"render wrappers launched {launches} for 4 calls")
+    require(torch.equal(vis, frame.mask_visib) and torch.equal(seg, frame.seg_image)
+            and torch.equal(sil, frame.mask_amodal)
+            and (sem == (frame.seg_image * 255).to(torch.uint8).cpu().numpy()).all(),
+            "a mask wrapper differs from render_frame")
+    require(torch.equal(rgb, torch.clamp(plain.rgb, 0, 1)) and torch.equal(depth, plain.depth[..., None]),
+            "render_rgb_and_depth differs from rasterize")
+    require(bool(vis.any()), "no object visible at the wrappers' camera")
+    print(f"phase 16e render wrappers: {len(objs)} objects at {WIDTH}x{HEIGHT}, visible, amodal and "
+          f"semantic masks bitwise equal to render_frame, rgb and depth to rasterize; "
+          f"{int(vis.sum())} visible and {int(sil.sum())} amodal object pixels; forward launches "
+          f"{launches} card={card}", flush=True)
+    return launches
+
+
+def asset_and_viewing_phase(tmp: Path, data: Path, out: Path, device, card: str) -> dict:
+    """Phase 16: asset building and viewing on the card, (a)-(e).  Returns
+    the launches {reconstruction, gui, render_wrappers} of each kernel."""
+    t0 = time.perf_counter()
+    asset, scan_up, rec = recipe_on_card(tmp, device, card)
+    gui_fwd = wire_viewer_on_card(asset.gaussian_point_cloud_path(TRAIN_ITERATIONS), device, card)
+    gui_fwd += publish2gui_on_card(data, out, device, card)
+    trainer = trainer_gui_on_card(scan_up, tmp, device, card)
+    wrappers = render_wrappers_on_card(data, out, device, card)
+    print(f"phase 16: {time.perf_counter() - t0:.1f} s card={card}", flush=True)
+    return {"forward": {"reconstruction": rec["forward"], "gui": gui_fwd + trainer["forward"],
+                        "render_wrappers": wrappers},
+            "backward": {"reconstruction": rec["backward"], "gui": trainer["backward"],
+                         "render_wrappers": 0}}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also run phase 6 (frames/s with and without PNG writes, profiler trace), "
-                             "a profiler trace of 20 training steps and simulate_variants(1000)")
+                        help="also run phase 6 (frames/s with and without PNG writes, profiler trace) "
+                             "and simulate_variants(1000)")
     parser.add_argument("--from-phase", type=int, default=1, metavar="N",
                         help="skip phases 3 to N - 1 (N > 3); such a run prints no result lines; "
-                             "12 runs the build, the compact-readback case and phases 12-15")
+                             "12 runs the build, the compact-readback case and phases 12-16, "
+                             "16 the build and phase 16")
     args = parser.parse_args()
     t_start = time.perf_counter()
     whole = args.from_phase <= 3
@@ -1742,6 +2152,7 @@ def main() -> int:
             bins = bin_splats(project_gaussians(train_box_cloud(dev), train_camera(dev)),
                               TRAIN_SIZE, TRAIN_SIZE)
             bwd_train = backward_vs_plain("train 150k box 512x512 K=1", bins, TRAIN_SIZE, TRAIN_SIZE, 1, card)
+            scatter = scatter_to_splats("train 150k box 512x512", bins, card)
             bins = bin_splats(project_gaussians(scene_210k, cams["orbit"]), WIDTH, HEIGHT)
             bwd_210k = backward_vs_plain("210k orbit 640x480 K=7", bins, WIDTH, HEIGHT, max_objects, card)
             del bins, scene_210k
@@ -1749,7 +2160,7 @@ def main() -> int:
             torch.cuda.empty_cache()
 
             # -- phase 8: the training main path ----------------------------------------------------
-            train_launches = training_main_path(Path(tmp), dev, card, args.profile)
+            train_launches = training_main_path(Path(tmp), dev, card)
 
         # -- phase 9: physics on the card ---------------------------------------------------------
         if args.from_phase <= 9:
@@ -1760,16 +2171,20 @@ def main() -> int:
         # -- phase 11: scene variants ---------------------------------------------------------------
         if args.from_phase <= 11:
             variant_launches = scene_variants(dev, card)
-        # -- phase 12: the splat-sharded render -------------------------------------------------------
-        sharded_launches = sharded_render_phase(dev, card, max_objects)
-        torch.cuda.empty_cache()
-        # -- phase 13: sharded generation ---------------------------------------------------------------
-        sharded_gen_launches = sharded_generation_phase(data, out, dev, card)
-        # -- phase 14: the data-parallel train step -------------------------------------------------------
-        dp_launches = dp_step_phase(dev, card)
-        torch.cuda.empty_cache()
-        # -- phase 15: the full-roster dress rehearsal ------------------------------------------------------
-        rehearsal_launches = dress_rehearsal_phase(Path(tmp), dev, card)
+        if args.from_phase <= 15:
+            # -- phase 12: the splat-sharded render ---------------------------------------------------
+            sharded_launches = sharded_render_phase(dev, card, max_objects)
+            torch.cuda.empty_cache()
+            # -- phase 13: sharded generation -----------------------------------------------------------
+            sharded_gen_launches = sharded_generation_phase(data, out, dev, card)
+            # -- phase 14: the data-parallel train step ---------------------------------------------------
+            dp_launches = dp_step_phase(dev, card)
+            torch.cuda.empty_cache()
+            # -- phase 15: the full-roster dress rehearsal --------------------------------------------------
+            rehearsal_launches = dress_rehearsal_phase(Path(tmp), dev, card)
+            torch.cuda.empty_cache()
+        # -- phase 16: asset building and viewing -----------------------------------------------------------
+        periphery = asset_and_viewing_phase(Path(tmp), data, out, dev, card)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
     if not whole:
@@ -1782,7 +2197,8 @@ def main() -> int:
         "replaces": "pegasus_tpu/ops/rasterize_pallas.py:531",
         "launches": (gen_launches + compact_launches + train_launches["forward"] + loop_launches
                      + variant_launches + sharded_launches + sharded_gen_launches
-                     + dp_launches["forward"] + rehearsal_launches),
+                     + dp_launches["forward"] + rehearsal_launches
+                     + sum(periphery["forward"].values())),
         "launches_generation": gen_launches,
         "launches_compact_readback": compact_launches,
         "launches_training": train_launches["forward"],
@@ -1792,6 +2208,9 @@ def main() -> int:
         "launches_sharded_generation": sharded_gen_launches,
         "launches_dp_step": dp_launches["forward"],
         "launches_dress_rehearsal": rehearsal_launches,
+        "launches_reconstruction": periphery["forward"]["reconstruction"],
+        "launches_gui": periphery["forward"]["gui"],
+        "launches_render_wrappers": periphery["forward"]["render_wrappers"],
         "max_abs_err": max(max_abs_err, bwd_train["fwd_max_abs_err"], bwd_210k["fwd_max_abs_err"],
                            *(f for f, _ in stress)),
         "chunk_entries": CHUNK_ENTRIES,
@@ -1814,9 +2233,13 @@ def main() -> int:
         "route": "cuda",
         "source": "pegasus_tpu_torch/csrc/composite_tiles_bwd.cu",
         "replaces": "pegasus_tpu/ops/pallas_vjp.py:105",
-        "launches": train_launches["backward"] + dp_launches["backward"],
+        "launches": (train_launches["backward"] + dp_launches["backward"]
+                     + sum(periphery["backward"].values())),
         "launches_training": train_launches["backward"],
         "launches_dp_step": dp_launches["backward"],
+        "launches_reconstruction": periphery["backward"]["reconstruction"],
+        "launches_gui": periphery["backward"]["gui"],
+        "launches_render_wrappers": periphery["backward"]["render_wrappers"],
         "max_abs_err": max(bwd_train["max_abs_err"], bwd_210k["max_abs_err"]),
         "max_abs_err_stress": max(b for _, b in stress),
         "chunk_entries": CHUNK_ENTRIES,
@@ -1832,6 +2255,7 @@ def main() -> int:
         "ms_210k": bwd_210k["ms"],
         "plain_ms_210k": bwd_210k["plain_ms"],
         "bound_ms_210k": bwd_210k["bwd"][0],
+        "scatter_ms": scatter["ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -13,7 +13,10 @@ CUDA tile compositor (``csrc/composite_tiles.cu``) -> every modality ->
 packed bytes -> the BOP writer.  Training (``training/trainer.py``) runs the
 same compositor under ``torch.autograd`` with its hand-written backward
 (``csrc/composite_tiles_bwd.cu``).  ``generate.py`` is the scene loop and the
-CLI (``python -m pegasus_tpu_torch.generate``).
+CLI (``python -m pegasus_tpu_torch.generate``).  Around them: the asset
+recipes (``reconstruction/``), the SIBR wire viewer (``network_gui.py``) and
+``viewer.py``, the facades (``gs/model.py``, ``scene/setup.py``) and the
+reference's helpers.
 
 Float32 matrix products must run in full float32 to compare with the
 reference at float32 tolerances.  That is PyTorch's default for matmuls

@@ -105,3 +105,36 @@ class Camera:
             [[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]],
             dtype=torch.float32, device=self.device,
         )
+
+    def world_to_cam(self, pts: torch.Tensor) -> torch.Tensor:
+        """[N, 3] world points -> camera frame."""
+        return pts @ self.R_w2c.T + self.t_w2c
+
+    def T_w2c(self) -> torch.Tensor:
+        """4x4 world-to-camera matrix."""
+        T = torch.eye(4, dtype=torch.float32, device=self.device)
+        T[:3, :3] = self.R_w2c
+        T[:3, 3] = self.t_w2c
+        return T
+
+
+def stack_cameras(cams) -> dict:
+    """Same-resolution cameras -> one stacked batch, as numpy arrays with a
+    leading camera axis (``R_w2c`` [B, 3, 3], ``t_w2c`` [B, 3], ``fovx`` /
+    ``fovy`` [B]; ``width`` / ``height`` ints): what
+    ``interop.cameras_from_numpy`` reads back into cameras.  The JAX
+    package stacks into one batched Camera; the port's batched paths take
+    sequences of cameras."""
+    if not cams:
+        raise ValueError("no cameras")
+    w, h = cams[0].width, cams[0].height
+    if any(c.width != w or c.height != h for c in cams):
+        raise ValueError("stack_cameras requires uniform resolution")
+    return {
+        "R_w2c": np.stack([c.R_w2c.cpu().numpy() for c in cams]),
+        "t_w2c": np.stack([c.t_w2c.cpu().numpy() for c in cams]),
+        "fovx": np.array([c.fovx for c in cams], np.float32),
+        "fovy": np.array([c.fovy for c in cams], np.float32),
+        "width": w,
+        "height": h,
+    }

@@ -17,6 +17,7 @@ import torch
 
 from pegasus_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from pegasus_tpu_torch.utils import quaternion as quat
+from pegasus_tpu_torch.utils import sh as shlib
 
 _SH_DEGREE_OF_REST = {0: 0, 3: 1, 8: 2, 15: 3}
 
@@ -116,10 +117,49 @@ class GaussianCloud:
         """[N, 1 + R, 3] concatenated SH (DC first)."""
         return torch.cat([self.f_dc, self.f_rest], dim=1)
 
+    def get_rgb(self) -> torch.Tensor:
+        """Base colour from the DC term only, clipped to [0, 1]
+        (reference: src/gs/gaussian_model.py:463-474)."""
+        return torch.clamp(shlib.sh2rgb(self.f_dc[:, 0, :]), 0.0, 1.0)
+
+    def covariance(self, scaling_modifier: float = 1.0) -> torch.Tensor:
+        """[N, 3, 3] world-space covariances R S S^T R^T
+        (reference: src/gs/gaussian_model.py:38-47)."""
+        R = quat.quat_to_rotmat(self.get_rotation())
+        RS = R * (scaling_modifier * self.get_scaling())[:, None, :]
+        return RS @ RS.transpose(-1, -2)
+
     def centroid(self) -> torch.Tensor:
         """Mean of alive splat positions (the body's rotation pivot)."""
         w = self.alive.to(torch.float32)[:, None]
         return torch.sum(self.xyz * w, dim=0) / torch.clamp(torch.sum(w), min=1.0)
+
+    # -- functional SE(3) ----------------------------------------------------
+
+    def transformed(self, R, t, pivot="centroid") -> "GaussianCloud":
+        """Apply a rigid transform to the whole cloud, as the reference's
+        composite ``apply_transformation``: xyz rotates about ``pivot`` and
+        translates (src/gs/gaussian_model.py:482-497, 579-582), per-splat
+        quaternions premultiply by R (:499-505), SH bands rotate (:507-546).
+
+        pivot: 'centroid' (the reference's), 'origin', or a [3] point."""
+        f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        R, t = f32(R), f32(t)
+        if isinstance(pivot, str) and pivot == "centroid":
+            p = self.centroid()
+        elif isinstance(pivot, str) and pivot == "origin":
+            p = torch.zeros(3, dtype=torch.float32, device=self.device)
+        else:
+            p = f32(pivot)
+        new_xyz = (self.xyz - p) @ R.T + p + t
+        new_rot = quat.quat_mul(quat.rotmat_to_quat(R)[None, :], self.get_rotation())
+        new_rest = self.f_rest
+        if self.f_rest.shape[1] > 0:
+            new_rest = shlib.rotate_sh_rest(self.f_rest, R, deg=self.sh_degree)
+        return self.replace(xyz=new_xyz, rot=new_rot, f_rest=new_rest)
+
+    def translated(self, t) -> "GaussianCloud":
+        return self.replace(xyz=self.xyz + torch.as_tensor(t, dtype=torch.float32, device=self.device))
 
     # -- composition -------------------------------------------------------
 
@@ -127,6 +167,21 @@ class GaussianCloud:
         return self.replace(
             object_id=torch.full_like(self.object_id, int(object_id))
         )
+
+    def with_flat_color(self, rgb) -> "GaussianCloud":
+        """Overwrite appearance with a flat colour (semantic paint): RGB2SH
+        of the colour into the DC term and zeros into the rest, as the
+        reference does (pegasus.py:227-232, src/gs/render.py:51-52)."""
+        dc = shlib.rgb2sh(torch.as_tensor(rgb, dtype=torch.float32, device=self.device))
+        dc = dc.expand(self.num_splats, 1, 3).contiguous()
+        return self.replace(f_dc=dc, f_rest=torch.zeros_like(self.f_rest))
+
+    def masked(self, keep) -> "GaussianCloud":
+        """Soft-delete splats (``mask_points`` that keeps the shape,
+        reference: src/gs/gaussian_model.py:598-623): dropped splats become
+        dead padding."""
+        keep = torch.as_tensor(keep, dtype=torch.bool, device=self.device)
+        return self.replace(alive=self.alive & keep)
 
     def padded(self, n_total: int) -> "GaussianCloud":
         """Pad with dead splats (alive=False, zero opacity) to ``n_total``."""

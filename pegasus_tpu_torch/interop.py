@@ -13,6 +13,7 @@ import torch
 from pegasus_tpu_torch.camera import Camera
 from pegasus_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from pegasus_tpu_torch.gs.cloud import GaussianCloud
+from pegasus_tpu_torch.gs.model import GaussianModel
 from pegasus_tpu_torch.physics.rigid_body import RigidBodyParams, RigidBodyState
 from pegasus_tpu_torch.training.trainer import GROUPS, TrainState
 
@@ -23,6 +24,15 @@ CAMERA_FIELDS = ("R_w2c", "t_w2c", "fovx", "fovy", "width", "height")
 def cloud_from_numpy(d: dict, device=DEFAULT_DEVICE) -> GaussianCloud:
     """{field: array} with every ``CLOUD_FIELDS`` key -> GaussianCloud."""
     return GaussianCloud.create(**{f: np.asarray(d[f]) for f in CLOUD_FIELDS}, device=device)
+
+
+def gaussian_model_from_numpy(d: dict, sh_degree: int = 3, device=DEFAULT_DEVICE) -> GaussianModel:
+    """A ``GaussianModel`` facade over ``cloud_from_numpy(d)``: ``d`` holds
+    the arrays of a reference model's cloud ({field: array}, every
+    ``CLOUD_FIELDS`` key)."""
+    model = GaussianModel(sh_degree, device=device)
+    model.cloud = cloud_from_numpy(d, device=device)
+    return model
 
 
 def camera_from_numpy(d: dict, device=DEFAULT_DEVICE) -> Camera:

@@ -20,8 +20,9 @@ static-cap a_small / mid / big slot buckets and their footprint clamp,
 ``entry_cap`` and the overflow flag, the PACKED8 fixed-point rows
 (binning.py:1-31, 57-76) and the ``_gather_rows_structured`` VJP (a
 workaround for TPU scatter cost: the training backward,
-``ops/composite_vjp.py``, scatters per-entry gradients to splats with
-``index_add_``, and ``pack_params`` differentiates under autograd).
+``ops/composite_vjp.py``, sums per-entry gradients into their splats with a
+segmented sum over ``splat_order``, and ``pack_params`` differentiates under
+autograd).
 
 The compositor reads one table of per-splat parameters, struct-of-arrays
 ``params[f, splat]`` (rows ``P_*`` below), through ``entry_splat``: each
@@ -66,6 +67,12 @@ class TileBins(NamedTuple):
     n_tiles_x: int
     n_tiles_y: int
     max_object_id: int  # largest object id among binned splats (-1 if none)
+    # the entries grouped by splat, each splat's in entry order
+    # (entry_splat[splat_order] is sorted, stably), and each splat's entry
+    # count: the backward sums a splat's gradients in this fixed order
+    # instead of with atomics
+    splat_order: torch.Tensor  # [M] int64
+    splat_count: torch.Tensor  # [N] int64
 
 
 def tile_bboxes(proj: ProjectedGaussians, width: int, height: int, tile: int = TILE):
@@ -133,6 +140,11 @@ def bin_splats(
     sorted_key, order = torch.sort(key, stable=True)
     entry_splat = splat[order].to(torch.int32)
 
+    # entries were generated in splat order and, within a splat, in tile
+    # order, so inverting the sort groups them by splat in entry order
+    splat_order = torch.empty_like(order)
+    splat_order[order] = torch.arange(m, device=dev)
+
     bounds = torch.searchsorted(
         sorted_key >> 32, torch.arange(n_tiles + 1, device=dev, dtype=torch.int64)
     )
@@ -144,4 +156,6 @@ def bin_splats(
         n_tiles_x=ntx,
         n_tiles_y=nty,
         max_object_id=max_object_id,
+        splat_order=splat_order,
+        splat_count=area,
     )

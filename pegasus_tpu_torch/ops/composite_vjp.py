@@ -10,8 +10,11 @@ Nothing falls back from one to the other.
 
 Both backward versions compute per-ENTRY gradients ``[10, M]`` of the
 parameter rows P_MX .. P_DEPTH (mean x/y, conic a/b/c, opacity, rgb,
-depth); ``index_add_`` then scatters them to the splats, where the JAX
-package left its gather transpose to XLA (binning.py:103-175).  Rows
+depth); a segmented sum then adds each splat's entries in a fixed order
+(``sum_by_splat``: the entries grouped by splat with the bins'
+``splat_order``, then ``torch.segment_reduce``), where the JAX package left
+its gather transpose to XLA (binning.py:103-175).  No float is summed by an
+atomic, so a training step is bitwise repeatable on the card.  Rows
 P_RADIUS and P_OBJ get zeros.  Everything around the compositor
 (projection, binning's ``pack_params``, background blend) differentiates
 under torch autograd; the sort order and tile keys are constants, as in
@@ -237,46 +240,57 @@ def composite_tiles_backward_torch(
     return entry_grad
 
 
+def sum_by_splat(bins: TileBins, rows: torch.Tensor) -> torch.Tensor:
+    """[R, M] per-entry rows -> [R, N] per-splat sums, each splat's entries
+    added in entry order by one segmented sum (no atomics: the same bits
+    every run), with the bins' ``splat_order`` / ``splat_count``."""
+    grouped = rows.T[bins.splat_order]  # [M, R], grouped by splat
+    return torch.segment_reduce(grouped, "sum", lengths=bins.splat_count, axis=0).T
+
+
 def entry_grads_to_splats(bins: TileBins, entry_grad: torch.Tensor) -> torch.Tensor:
     """[10, M] per-entry gradients -> [PARAM_DIM, N] per-splat gradients
     (rows P_RADIUS and P_OBJ zero)."""
     dparams = torch.zeros_like(bins.params)
-    dparams[:N_GRAD].index_add_(1, bins.entry_splat.long(), entry_grad)
+    dparams[:N_GRAD] = sum_by_splat(bins, entry_grad)
     return dparams
 
 
 class CompositeTiles(torch.autograd.Function):
     """``composite_tiles`` with ``composite_tiles_backward`` as its gradient.
 
-    apply(params, abs_grad_sink, entry_splat, tile_start, tile_count, n_tiles_x,
-    n_tiles_y, max_object_id, width, height, max_objects) -> [H, W, F]; the
-    gradient reaches ``params`` and, when given, ``abs_grad_sink``.  The
+    apply(params, abs_grad_sink, entry_splat, tile_start, tile_count, splat_order,
+    splat_count, n_tiles_x, n_tiles_y, max_object_id, width, height,
+    max_objects) -> [H, W, F]; the gradient reaches ``params`` and, when
+    given, ``abs_grad_sink``.  The
     output and the per-item partials are saved for the backward's one walk;
     autograd's version check raises if anything edits the output in place."""
 
     @staticmethod
-    def forward(ctx, params, abs_grad_sink, entry_splat, tile_start, tile_count,
-                n_tiles_x, n_tiles_y, max_object_id, width, height, max_objects):
-        bins = TileBins(params, entry_splat, tile_start, tile_count,
-                        n_tiles_x, n_tiles_y, max_object_id)
+    def forward(ctx, params, abs_grad_sink, entry_splat, tile_start, tile_count, splat_order,
+                splat_count, n_tiles_x, n_tiles_y, max_object_id, width, height, max_objects):
+        bins = TileBins(params, entry_splat, tile_start, tile_count, n_tiles_x, n_tiles_y,
+                        max_object_id, splat_order, splat_count)
         out, partials = composite_tiles(bins, width, height, max_objects, return_partials=True)
-        ctx.save_for_backward(params, entry_splat, tile_start, tile_count, out, partials)
+        ctx.save_for_backward(params, entry_splat, tile_start, tile_count, splat_order,
+                              splat_count, out, partials)
         ctx.meta = (n_tiles_x, n_tiles_y, max_object_id, width, height, max_objects)
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, grad_out):
-        params, entry_splat, tile_start, tile_count, out, partials = ctx.saved_tensors
+        (params, entry_splat, tile_start, tile_count, splat_order, splat_count, out,
+         partials) = ctx.saved_tensors
         ntx, nty, max_id, width, height, k = ctx.meta
-        bins = TileBins(params, entry_splat, tile_start, tile_count, ntx, nty, max_id)
+        bins = TileBins(params, entry_splat, tile_start, tile_count, ntx, nty, max_id,
+                        splat_order, splat_count)
         entry_grad = composite_tiles_backward(bins, grad_out, out, partials, width, height, k)
         dparams = entry_grads_to_splats(bins, entry_grad)
         dsink = None
         if ctx.needs_input_grad[1]:
-            dsink = torch.zeros(params.shape[1], 2, device=params.device)
-            dsink.index_add_(0, entry_splat.long(), entry_grad[0:2].abs().T)
-        return dparams, dsink, None, None, None, None, None, None, None, None, None
+            dsink = sum_by_splat(bins, entry_grad[0:2].abs()).T
+        return (dparams, dsink) + (None,) * 11
 
 
 def composite_tiles_diff(
@@ -286,7 +300,8 @@ def composite_tiles_diff(
     ``bins.params`` (and ``abs_grad_sink``)."""
     return CompositeTiles.apply(
         bins.params, abs_grad_sink, bins.entry_splat, bins.tile_start, bins.tile_count,
-        bins.n_tiles_x, bins.n_tiles_y, bins.max_object_id, width, height, max_objects,
+        bins.splat_order, bins.splat_count, bins.n_tiles_x, bins.n_tiles_y, bins.max_object_id,
+        width, height, max_objects,
     )
 
 

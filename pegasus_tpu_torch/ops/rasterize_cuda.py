@@ -410,3 +410,13 @@ def rasterize(
     bins = bin_splats(proj, cam.width, cam.height)
     out = composite_tiles(bins, cam.width, cam.height, max_objects)
     return outputs_from_channels(out, background, max_objects)
+
+
+def refuse_rasterize_fn(rasterize_fn) -> None:
+    """The reference's entry points take a ``rasterize_fn``; this package
+    renders with ``rasterize`` only, so it accepts ``None`` and nothing else."""
+    if rasterize_fn is not None:
+        raise ValueError(
+            "rasterize_fn: this package renders with ops.rasterize_cuda.rasterize "
+            "(the forward kernel on the card); pass None"
+        )

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from pegasus_tpu_torch.camera import Camera
-from pegasus_tpu_torch.gs.cloud import GaussianCloud
+from pegasus_tpu_torch.gs.cloud import GaussianCloud, merge
 from pegasus_tpu_torch.ops.rasterize_cuda import rasterize
 from pegasus_tpu_torch.ops.rasterize_ref import RenderOutputs
 
@@ -70,6 +70,69 @@ def render_frame(
     out = rasterize(scene, cam, background=background,
                     max_objects=semantic_colors.shape[0] + 1)
     return decode_modalities(out, semantic_colors)
+
+
+# ---------------------------------------------------------------------------
+# Reference-signature compatibility wrappers (src/gs/render.py:14-129).
+# Each maps onto ONE fused pass over the composed scene instead of the
+# reference's separate rasterizer invocations.  ``gs_environment`` /
+# ``gs_object_list`` take GaussianModel facades or GaussianClouds; the
+# object dict's keys are the object ids, and an id beyond the palette
+# raises (``rasterize`` keeps no channel for it).  Every wrapper renders
+# with ``rasterize`` (the forward kernel on the card); the JAX package
+# renders ``render_rgb_and_depth`` with its golden compositor.
+# ---------------------------------------------------------------------------
+
+
+def _as_cloud(x) -> GaussianCloud:
+    return x.cloud if hasattr(x, "cloud") else x
+
+
+def _compose(gs_environment, gs_object_list) -> tuple[GaussianCloud, int]:
+    """(merged scene with object_id = the dict key, largest id)."""
+    parts = [_as_cloud(gs_environment).with_object_id(0)]
+    for oid, obj in gs_object_list.items():
+        parts.append(_as_cloud(obj).with_object_id(int(oid)))
+    return merge(parts), max(gs_object_list.keys(), default=0)
+
+
+def _render_composed(cam, gs_environment, gs_object_list, color_set, bg) -> FrameDataPoints:
+    scene, max_id = _compose(gs_environment, gs_object_list)
+    colors = torch.zeros((max_id, 3)) if color_set is None else color_set
+    colors = torch.as_tensor(colors, dtype=torch.float32, device=scene.device)
+    return render_frame(scene, cam, colors, background=bg)
+
+
+def render_rgb_and_depth(cam, gs_scene, pipe_settings=None, bg=(0, 0, 0), debug=False):
+    """(rgb [H, W, 3], depth [H, W, 1]) like the reference (render.py:14-33).
+    Colour and depth need no object channels, so the scene renders with
+    its ids set to 0 and K = 1."""
+    out = rasterize(_as_cloud(gs_scene).with_object_id(0), cam, background=bg, max_objects=1)
+    return torch.clamp(out.rgb, 0, 1), out.depth[..., None]
+
+
+def render_visib_mask(cam, gs_environment, gs_object_list, color_set, height=None, width=None,
+                      pipe_settings=None, bg=(0, 0, 0)):
+    """(per-object visible masks [H, W, K], seg colour image): environment
+    splats are left out of the occlusion, the reference's quirk
+    (render.py:68-97), but the masks are decoded from exact weights."""
+    frame = _render_composed(cam, gs_environment, gs_object_list, color_set, bg)
+    return frame.mask_visib, frame.seg_image
+
+
+def render_silhouette_mask(cam, gs_object_list, gs_env, width=None, height=None, color_set=None,
+                           pipe_settings=None, bg=(0, 0, 0)):
+    """Per-object amodal masks [H, W, K] (reference: render.py:36-65, one
+    CUDA pass per object there; one fused pass here)."""
+    return _render_composed(cam, gs_env, gs_object_list, color_set, bg).mask_amodal
+
+
+def render_semanticsegmentation_mask(cam, gs_environment, gs_object_list, color_set, height=None,
+                                     width=None, pipe_settings=None, bg=(0, 0, 0), debug=False):
+    """uint8 semantic colour image as a host array (reference:
+    render.py:100-129)."""
+    frame = _render_composed(cam, gs_environment, gs_object_list, color_set, bg)
+    return (frame.seg_image * 255).to(torch.uint8).cpu().numpy()
 
 
 class FrameEncoded(NamedTuple):

@@ -25,8 +25,16 @@ Differences from the reference, all deliberate:
     the device (``ops/render.py::rle_pack_chunk``) with a chunk of C = 1
     frame, since a frame is one dispatch here; the raw planes are fetched
     only for a frame whose header reports a run-budget overflow;
-  * ``publish2gui`` is not ported (ROADMAP M13), nor is the XLA compile
-    cache (nothing to cache: torch runs eagerly).
+  * frames render one per dispatch, so ``frame_chunk`` is accepted and
+    ignored, and ``publish2gui`` answers a pending SIBR viewer request once
+    per frame (the reference polls once per chunk); the GUI renders with
+    ``ops.rasterize_cuda.rasterize`` (the forward kernel on the card), and
+    ``rasterize_fn`` takes only ``None``;
+  * the GUI drops its connection on socket and protocol errors only: any
+    other error, a failed kernel launch among them, propagates (the
+    reference drops the connection on any exception);
+  * the XLA compile cache is not ported (nothing to cache: torch runs
+    eagerly).
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ from pegasus_tpu_torch.io import colmap as colmap_io
 from pegasus_tpu_torch.io.bop_writer import BOPDatasetWriter
 from pegasus_tpu_torch.io.mesh import load_mesh
 from pegasus_tpu_torch.physics.engine import MAX_BODIES, PhysicsEngine
+from pegasus_tpu_torch.ops.rasterize_cuda import refuse_rasterize_fn
 from pegasus_tpu_torch.ops.render import (encode_frame, pack_frame_bytes,
                                           render_frame, rle_max_runs,
                                           rle_pack_chunk, rle_unpack_chunk,
@@ -61,6 +70,8 @@ class PEGASUS:
 
     LOAD_ITERATION: int = 30_000
     SH_DEGREE: int = 3
+    IP: str = "127.0.0.1"
+    PORT: int = 6009
 
     def __init__(
         self,
@@ -80,20 +91,25 @@ class PEGASUS:
         background=(0.0, 0.0, 0.0),
         seed: Optional[int] = None,
         splat_budget: Optional[int] = None,
+        rasterize_fn=None,
         unit_scale: float = 1000.0,
         QUIET: bool = False,
-        publish2gui: bool = False,
+        publish2gui: bool = False,  # serve frames to a SIBR viewer (TCP)
+        frame_chunk: int = 8,  # accepted for the reference's scripts; one frame per dispatch here
         compact_readback: bool = False,
         freeze_dynamic_gt_pose: bool = False,  # reference quirk: dynamic
         # scene_gt keeps the t=0 pose for every frame
         device="cuda",
     ):
-        if publish2gui:
-            raise NotImplementedError(
-                "publish2gui (SIBR viewer) is not ported yet: ROADMAP M13"
-            )
+        refuse_rasterize_fn(rasterize_fn)
         self.compact_readback = compact_readback
         self.device = resolve_device(device)
+        self.publish2gui = publish2gui
+        if publish2gui:
+            # SIBR remote-viewer socket, the reference's wire protocol
+            from pegasus_tpu_torch import network_gui
+
+            network_gui.init(self.IP, self.PORT)
         self.dataset_path = dataset_path
         self.env_dataset_path = env_dataset_path or dataset_path
         self.urdf_asset_folder = urdf_asset_folder
@@ -265,6 +281,42 @@ class PEGASUS:
             self.trajectory.times_t, self.trajectory.times_q, step, device=self.device
         )
 
+    def _serve_gui(self, scene) -> None:
+        """Answer one pending SIBR viewer request with a render of the posed
+        ``scene``, without blocking when none is pending (the reference's
+        network_gui loop, pegasus.py:249-279).  A socket or protocol error
+        drops the connection (a timeout mid-message too: the stream would
+        be out of step); an error of the render propagates."""
+        import select
+
+        from pegasus_tpu_torch import network_gui as ng
+
+        if ng.listener is None:
+            return
+        if ng.conn is None:
+            ng.try_connect()
+            if ng.conn is None:
+                return
+        try:
+            # read only when a request is already pending
+            readable, _, _ = select.select([ng.conn], [], [], 0.0)
+            if not readable:
+                return
+            ng.conn.settimeout(2.0)
+            cam = ng.receive(self.device)[0]
+            ng.conn.settimeout(None)
+        except ng.PROTOCOL_ERRORS:
+            ng.conn = None
+            return
+        img_bytes = None
+        if cam is not None:
+            frame = render_frame(scene, cam, self._semantic_colors_dev, background=self.background)
+            img_bytes = ng.frame_bytes(frame.rgb)
+        try:
+            ng.send(img_bytes, self.dataset_path)
+        except ng.PROTOCOL_ERRORS:
+            ng.conn = None
+
     # -- main loop ------------------------------------------------------------------
 
     def _to_host(self, tensors):
@@ -406,6 +458,8 @@ class PEGASUS:
             else:
                 packed = pack_frame_bytes(enc)
             host, event = self._to_host((packed,) + tuple(poses))
+            if self.publish2gui:
+                self._serve_gui(scene)
             if pending is not None:
                 write(*pending)  # overlaps frame i's device work
             pending = (i, host, event, sparse_dev)

@@ -243,6 +243,93 @@ def make_colmap_hemisphere(
     return cams, images
 
 
+def write_colmap_scan(root, gt: GaussianCloud, size: int, n_images: int = 28,
+                      fov_deg: float = 55.0, radius: float = 0.9, n_seeds: int = 40_000,
+                      seed: int = 3) -> None:
+    """A synthetic COLMAP scan under ``root``: ``sparse/0`` with ``n_images``
+    hemisphere views at ``size`` x ``size`` and ``n_seeds`` seed points drawn
+    from ``gt``'s splats with 5 mm of noise (coloured by their splats' DC
+    colour), and ``images/`` rendered from ``gt`` by ``rasterize`` on
+    ``gt``'s device."""
+    import torch
+
+    from pegasus_tpu_torch.camera import Camera
+    from pegasus_tpu_torch.io import colmap as cio
+    from pegasus_tpu_torch.io.png import write_png
+    from pegasus_tpu_torch.ops.rasterize_cuda import rasterize
+    from pegasus_tpu_torch.utils.pose import focal2fov
+
+    root = Path(root)
+    focal = size / (2 * np.tan(np.radians(fov_deg) / 2))
+    cams, images = make_colmap_hemisphere(n_images=n_images, radius=radius, width=size,
+                                          height=size, focal=focal)
+    sparse = root / "sparse" / "0"
+    sparse.mkdir(parents=True)
+    cio.write_cameras_binary(cams, sparse / "cameras.bin")
+    cio.write_images_binary(images, sparse / "images.bin")
+    rng = np.random.default_rng(seed)
+    idx = rng.choice(gt.num_splats, n_seeds, replace=False)
+    xyz = gt.xyz[idx].cpu().numpy() + rng.normal(size=(n_seeds, 3)) * 0.005
+    rgb = (np.clip(shlib.sh2rgb(gt.f_dc[idx, 0].cpu().numpy()), 0, 1) * 255).astype(np.uint8)
+    none = np.zeros(0, np.int32)
+    cio.write_points3d_binary(
+        {i + 1: cio.ColmapPoint3D(i + 1, xyz[i], rgb[i], 0.1, none, none) for i in range(n_seeds)},
+        sparse / "points3D.bin",
+    )
+    (root / "images").mkdir()
+    fov = focal2fov(focal, size)
+    with torch.no_grad():
+        for im in images.values():
+            cam = Camera.from_colmap(im.qvec, im.tvec, fov, fov, size, size, device=gt.device)
+            rgb_img = torch.clamp(rasterize(gt, cam, max_objects=1).rgb, 0, 1)
+            write_png(root / "images" / im.name, (rgb_img * 255).to(torch.uint8).cpu().numpy())
+
+
+# A stand-in for the ``colmap`` executable, for machines without COLMAP:
+# ``feature_extractor`` and the matchers touch the database; ``mapper``,
+# ``point_triangulator`` and ``image_registrator`` install the pre-baked
+# model found at $COLMAP_STUB_MODEL.  Structure from motion does not run.
+COLMAP_STUB = """#!/usr/bin/env python3
+import os, shutil, sys
+from pathlib import Path
+cmd = sys.argv[1]
+args = {}
+it = iter(sys.argv[2:])
+for k in it:
+    args[k] = next(it, "")
+model = Path(os.environ["COLMAP_STUB_MODEL"])
+def install(dst):
+    dst = Path(dst)
+    dst.mkdir(parents=True, exist_ok=True)
+    for f in ("cameras.bin", "images.bin", "points3D.bin"):
+        if (model / f).exists():
+            shutil.copyfile(model / f, dst / f)
+if cmd == "mapper":
+    install(Path(args["--output_path"]) / "0")
+elif cmd in ("point_triangulator", "image_registrator"):
+    install(args["--output_path"])
+elif cmd in ("feature_extractor", "exhaustive_matcher", "vocab_tree_matcher"):
+    db = args.get("--database_path")
+    if db:
+        Path(db).touch()
+else:
+    sys.exit(f"stub colmap: unexpected command {cmd}")
+sys.exit(0)
+"""
+
+
+def install_colmap_stub(bin_dir) -> Path:
+    """Write ``COLMAP_STUB`` as an executable ``colmap`` into ``bin_dir``
+    (put it first on PATH and set COLMAP_STUB_MODEL to the model's
+    directory); returns its path."""
+    bin_dir = Path(bin_dir)
+    bin_dir.mkdir(parents=True, exist_ok=True)
+    exe = bin_dir / "colmap"
+    exe.write_text(COLMAP_STUB)
+    exe.chmod(0o755)
+    return exe
+
+
 def build_synthetic_dataset(
     root,
     env_name: str = "asphalt",

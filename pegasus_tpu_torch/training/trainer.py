@@ -27,8 +27,12 @@ Dropped: ``backend``, ``render_fn`` and ``max_per_tile`` (the XLA backend
 selection and the tiled backend's per-tile cap; exact binning has no cap)
 and ``enable_compilation_cache`` (XLA's).  Data-parallel training
 (``make_dp_train_step``, ``train(mesh=)``) runs a camera batch over the lanes
-of a ``parallel.mesh.Mesh``, one compositor pair per camera.  Not ported
-yet, and raising: the wrapper's ``gui=True`` (ROADMAP M13, ``network_gui``).
+of a ``parallel.mesh.Mesh``, one compositor pair per camera.  The wrapper's
+``gui=True`` serves the cloud in training to a SIBR viewer
+(``network_gui``) through ``train(iteration_hook=)``; its renders go through
+``rasterize`` (the forward kernel on the card, where the reference renders
+with its golden compositor), and only socket and protocol errors drop the
+connection.
 """
 
 from __future__ import annotations
@@ -500,11 +504,14 @@ class GSTrainer:
         scene_extent: float = 1.0,
         log_every: int = 0,
         mesh=None,
+        iteration_hook=None,
     ):
         """``iterations`` steps from ``state``, densifying and resetting
         opacity on the global step.  With ``mesh`` every iteration renders a
         mesh-size camera batch data-parallel (``make_dp_train_step``: one
-        update per iteration)."""
+        update per iteration).  ``iteration_hook``, if given, is called as
+        ``f(state, global_step)`` after every iteration (the SIBR network
+        GUI, reference: src/gs/gs_training.py:43-44)."""
         dp_step = None
         if mesh is not None:
             dp_step = self.make_dp_train_step(mesh, axis=mesh.axis_names[0])
@@ -539,6 +546,8 @@ class GSTrainer:
                     f"iter {gstep}: loss={float(metrics['loss']):.4f} "
                     f"alive={int(state.cloud.alive.sum())}"
                 )
+            if iteration_hook is not None:
+                iteration_hook(state, gstep)
         return state, metrics
 
 
@@ -548,6 +557,41 @@ def compact_cloud(cloud: GaussianCloud) -> GaussianCloud:
     alive = cloud.alive
     return GaussianCloud(**{f.name: getattr(cloud, f.name)[alive]
                             for f in dataclasses.fields(GaussianCloud)})
+
+
+def _gui_iteration_hook(model_path: str, max_iterations: int):
+    """The SIBR network-GUI service, called once per training iteration
+    (reference: trainer.py:596-632): accept a viewer connection without
+    blocking; while one is live, answer each request with a render of the
+    CURRENT cloud from the requested camera, and go back to training when
+    the client asks for it (``train=True``) or goes away.  Socket and
+    protocol errors drop the connection; a render error propagates."""
+    from pegasus_tpu_torch import network_gui as ng
+    from pegasus_tpu_torch.ops.rasterize_cuda import rasterize
+
+    def hook(state, gstep):
+        if ng.conn is None:
+            ng.try_connect()
+        while ng.conn is not None:
+            try:
+                cam, do_training, _, _, keep_alive, scaling = ng.receive(state.cloud.device)
+            except ng.PROTOCOL_ERRORS:
+                ng.conn = None
+                break
+            img_bytes = None
+            if cam is not None:
+                with torch.no_grad():
+                    out = rasterize(state.cloud, cam, scaling_modifier=scaling, max_objects=1)
+                img_bytes = ng.frame_bytes(out.rgb)
+            try:
+                ng.send(img_bytes, model_path)
+            except ng.PROTOCOL_ERRORS:
+                ng.conn = None
+                break
+            if do_training and (gstep < max_iterations or not keep_alive):
+                break
+
+    return hook
 
 
 def train_gaussian_splatting_wrapper(
@@ -567,14 +611,12 @@ def train_gaussian_splatting_wrapper(
     train a GS asset from a COLMAP reconstruction directory and save PLY
     checkpoints under <model_path>/point_cloud/iteration_<k>/.
 
-    ``gui=True`` (the SIBR network viewer) is not ported yet and raises."""
+    ``gui=True`` serves the cloud in training to a SIBR remote viewer over
+    the Inria ``network_gui`` wire protocol on (ip, port), as the reference
+    does (gs_training.py:43-44)."""
     from pegasus_tpu_torch.gs.ply import save_gs_ply, save_o3d_ply
     from pegasus_tpu_torch.scene.dataset import load_colmap_scene
 
-    if gui:
-        raise NotImplementedError(
-            "gui=True needs network_gui, which is not ported yet (ROADMAP M13)"
-        )
     device = resolve_device(device)
     scene = load_colmap_scene(data_path, device=device, **kwargs)
     if capacity is None:
@@ -586,23 +628,35 @@ def train_gaussian_splatting_wrapper(
     state = trainer.init_state(cloud0, spatial_lr_scale=scene["extent"])
     images = [torch.tensor(im, device=device) for im in scene["images"]]
 
-    save_at = sorted(set(list(SAVE_ITERATION) + [iterations]))
-    done = 0
-    for milestone in save_at:
-        if milestone > iterations:
-            continue
-        state, _ = trainer.train(
-            state,
-            scene["cameras"],
-            images,
-            iterations=milestone - done,
-            scene_extent=scene["extent"],
-        )
-        done = milestone
-        out = Path(model_path) / "point_cloud" / f"iteration_{milestone}"
-        compact = compact_cloud(state.cloud)
-        save_gs_ply(compact, str(out / "point_cloud.ply"))
-        # the reference's save_ply also writes the o3d companion cloud
-        # (gaussian_model.py:475-479) consumed by URDF meshing/alignment
-        save_o3d_ply(compact, str(out / "point_cloud_o3d.ply"))
+    hook = None
+    if gui:
+        from pegasus_tpu_torch import network_gui as ng
+
+        ng.init(ip, port)
+        hook = _gui_iteration_hook(str(model_path), iterations)
+
+    try:
+        save_at = sorted(set(list(SAVE_ITERATION) + [iterations]))
+        done = 0
+        for milestone in save_at:
+            if milestone > iterations:
+                continue
+            state, _ = trainer.train(
+                state,
+                scene["cameras"],
+                images,
+                iterations=milestone - done,
+                scene_extent=scene["extent"],
+                iteration_hook=hook,
+            )
+            done = milestone
+            out = Path(model_path) / "point_cloud" / f"iteration_{milestone}"
+            compact = compact_cloud(state.cloud)
+            save_gs_ply(compact, str(out / "point_cloud.ply"))
+            # the reference's save_ply also writes the o3d companion cloud
+            # (gaussian_model.py:475-479) consumed by URDF meshing/alignment
+            save_o3d_ply(compact, str(out / "point_cloud_o3d.ply"))
+    finally:
+        if gui:
+            ng.close()
     return state

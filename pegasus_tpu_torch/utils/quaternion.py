@@ -74,3 +74,49 @@ def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         ],
         dim=-1,
     )
+
+
+def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
+    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
+
+
+def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vector(s) v by wxyz quaternion(s) q (normalized internally)."""
+    q = normalize(q)
+    w = q[..., 0:1]
+    u = q[..., 1:4]
+    u, v = torch.broadcast_tensors(u, v)
+    uv = torch.linalg.cross(u, v, dim=-1)
+    return v + 2.0 * (w * uv + torch.linalg.cross(u, uv, dim=-1))
+
+
+def slerp(q1: torch.Tensor, q2: torch.Tensor, alpha) -> torch.Tensor:
+    """Spherical linear interpolation, layout-agnostic (4-vectors).
+
+    The reference's SLERP including the lerp fallback when the quaternions
+    are nearly parallel (dot > 0.9995)
+    (reference: src/utility/pose_interpolation.py:58-84)."""
+    alpha = torch.as_tensor(alpha, dtype=q1.dtype, device=q1.device)
+    dot = torch.sum(q1 * q2, dim=-1, keepdim=True)
+    q1 = torch.where(dot < 0, -q1, q1)
+    dot = torch.clamp(torch.abs(dot), -1.0, 1.0)
+
+    # near-parallel: normalized lerp
+    lerp = normalize(q1 + alpha[..., None] * (q2 - q1))
+
+    theta_0 = torch.arccos(dot)
+    sin_theta_0 = torch.clamp(torch.sin(theta_0), min=1e-12)
+    theta = theta_0 * alpha[..., None]
+    s1 = torch.cos(theta) - dot * torch.sin(theta) / sin_theta_0
+    s2 = torch.sin(theta) / sin_theta_0
+    true_slerp = s1 * q1 + s2 * q2
+    return torch.where(dot > 0.9995, lerp, true_slerp)
+
+
+def random_unnormalized_quat_xyzw(generator: torch.Generator, shape=(4,)) -> torch.Tensor:
+    """uniform(0,1)^4 start orientation, matching the reference's
+    (deliberately unnormalized) object-drop initialization
+    (reference: src/engine/physical_simulation.py:66-73); ``shape`` ends in
+    4.  Consumers normalize before use, exactly as Bullet does internally.
+    The draws follow ``generator``'s device."""
+    return torch.rand(tuple(shape), generator=generator, device=generator.device)

@@ -138,3 +138,22 @@ def sh_band_rotation(R: torch.Tensor, band: int) -> torch.Tensor:
     B1 = _BAND_FNS[band](rotated)  # [..., 32, 2l+1]: B1[k, i] = Y_i(R d_k)
     Dt = torch.einsum("jk,...ki->...ji", pinv, B1)
     return Dt.transpose(-1, -2)
+
+
+def rotate_sh_rest(f_rest: torch.Tensor, R: torch.Tensor, deg: int = 3) -> torch.Tensor:
+    """Rotate higher-order SH coefficients by the rotation matrix R: each
+    band's block maps c -> D_band c (the reference's per-band Wigner-D
+    rotation, src/gs/gaussian_model.py:507-546, without e3nn).
+
+    f_rest: [N, 15, C] band-1..3 coefficients (Inria storage layout);
+    R: [3, 3].  Returns the rotated [N, 15, C]."""
+    outs = []
+    start = 0
+    for band in range(1, deg + 1):
+        dim = _BAND_DIMS[band]
+        D = sh_band_rotation(R, band)  # [dim, dim]
+        outs.append(torch.einsum("ij,njc->nic", D, f_rest[:, start : start + dim, :]))
+        start += dim
+    if start < f_rest.shape[1]:
+        outs.append(f_rest[:, start:, :])
+    return torch.cat(outs, dim=1)

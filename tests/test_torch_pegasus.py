@@ -24,6 +24,7 @@ from pegasus_tpu.assets.registry import Asset as JAsset
 from pegasus_tpu.ops.rasterize_ref import rasterize_reference as j_reference
 from pegasus_tpu.pegasus import PEGASUS as JPEGASUS
 
+from pegasus_tpu_torch import network_gui
 from pegasus_tpu_torch.assets.registry import Asset
 from pegasus_tpu_torch.ops.rasterize_cuda import rasterize
 from pegasus_tpu_torch.pegasus import PEGASUS
@@ -177,8 +178,14 @@ def test_refusals(recorded, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PEGASUS(gs_env_list=[env], gs_object_list=objs, **cfg)  # default device="cuda"
-    with pytest.raises(NotImplementedError, match="M13"):
-        PEGASUS(gs_env_list=[env], gs_object_list=objs, device="cpu", **cfg, publish2gui=True)
+    # publish2gui is ported (tests/test_torch_gui.py): it constructs and listens
+    monkeypatch.setattr(PEGASUS, "PORT", 0)
+    try:
+        assert PEGASUS(gs_env_list=[env], gs_object_list=objs, device="cpu", **cfg,
+                       publish2gui=True).publish2gui
+        assert network_gui.listener is not None
+    finally:
+        network_gui.close()
     # compact_readback is ported (tests/test_torch_readback.py): it constructs
     assert PEGASUS(gs_env_list=[env], gs_object_list=objs, device="cpu", **cfg,
                    compact_readback=True).compact_readback
@@ -189,6 +196,20 @@ def test_refusals(recorded, tmp_path, monkeypatch):
     pegasus = PEGASUS(gs_env_list=[env], gs_object_list=objs, device="cpu", **dict(cfg, simulation_steps=4))
     pegasus.init_bullet([env], objs, "x", 1)
     assert pegasus.py_engine.device.type == "cpu" and pegasus.trajectory.num_steps == 4
+
+
+def test_reference_constructor_keywords(recorded, tmp_path):
+    """The reference's ``frame_chunk`` is accepted (one frame per dispatch
+    here) and its ``rasterize_fn`` only as None: anything else raises a
+    ValueError naming the renderer the port uses."""
+    root, _, _ = recorded
+    env, objs = _assets(root, Asset)
+    cfg = _config(root, tmp_path, "static", "sequence")
+    assert PEGASUS(gs_env_list=[env], gs_object_list=objs, device="cpu", **cfg, frame_chunk=8,
+                   rasterize_fn=None)
+    with pytest.raises(ValueError, match="rasterize_cuda.rasterize"):
+        PEGASUS(gs_env_list=[env], gs_object_list=objs, device="cpu", **cfg,
+                rasterize_fn=object())
 
 
 def test_video_streams_when_asked(recorded, tmp_path):
