@@ -23,13 +23,25 @@ Phases, each of which fails the run (nonzero exit) on any miss:
 5. generation main path: the ``PEGASUS`` lifecycle replaying the committed
    trajectory ``tests/data/torch_smoke_trajectory.json`` over a synthetic
    dataset (150k-splat environment, six 10k-splat objects) at 640x480 with
-   every modality: a static scene of 40 frames and a dynamic scene of 8.
-   The BOP tree is checked, and the forward kernel's launch count must
-   equal the frames rendered.  Prints frames/s with the host's CPU time and
-   load, and per-stage device times;
-6. with ``--profile`` only: frames/s of both scenes with and without PNG
-   writes, and a ``torch.profiler`` trace of the static scene (device busy
-   share, kernel launches, the compositor's share of device time);
+   every modality: a static scene of 40 frames and a dynamic scene of 8,
+   each at ``frame_chunk`` 1 and 8 in the order 1, 8, 8, 1, every turn
+   three runs (PNG writes on, off, and on under ``torch.profiler``), then
+   at 3 once.  Every run's BOP tree is checked, the forward kernel launches
+   and ``bin_splats`` reads the host once per chunk, and the trees at
+   ``frame_chunk`` 1, 3 and 8 are byte-identical.  Prints per turn frames/s
+   with and without PNG writes, launches and host reads per frame,
+   ``fetch_stall_s`` and the trace's device busy share and kernel launches
+   per frame; then the 300-frame static scene (10 cameras x 30 steps,
+   ``GenerationConfig``'s default) at C = 8.  Then K1 at the chunk shape:
+   one launch over 8 frames of the static scene bitwise equal to the 8
+   frames' own launches and within phase 3's limits of the plain version
+   on the chunk, likewise the long-segment stress tiles over 3 frames;
+   timed beside the 8 single launches, with the chunk's bound.  Then per
+   stage (project, bin, composite, decode + pack) at C = 1 and 8 the stream
+   span between CUDA events (for a host-bound stage, the time the host
+   takes to enqueue its launches) beside the profiler's device time;
+6. (folded into phase 5 since the frame chunk: ``--profile`` now only adds
+   ``simulate_variants(1000)`` to phase 9);
 7. both kernels vs plain at the training shape (150k-splat box, 512x512,
    K = 1) and at the 210k bench scene's orbit view (K = 7: the seg, vis
    and amodal terms): the forward kernel as in phase 3, and
@@ -79,8 +91,8 @@ Phases, each of which fails the run (nonzero exit) on any miss:
    scene (10 cameras x 4 steps) and one dynamic scene (2 x 4) of one
    dataset.  ``check_bop_tree`` on both scenes, ``check_bop_dataset`` ok,
    two records in the stats JSONL, a further call resumes and renders
-   nothing, and the forward kernel's launch count equals the frames
-   rendered.  Prints per scene the physics / setup / render / finalize
+   nothing, and the forward kernel launches once per chunk of 8 frames
+   (``config.frame_chunk``).  Prints per scene the physics / setup / render / finalize
    seconds and shares and frames/s;
 11. scene variants: ``generate_scene_variants`` with V = 64 at 640x480 on a
    210k-splat template (150k plane + 6 flat boxes of 10k), drops of 600
@@ -135,8 +147,9 @@ Phases, each of which fails the run (nonzero exit) on any miss:
    orbit views at 640x480 to a client socket, each frame bitwise equal to
    ``rasterize`` of its camera, then ``viewer.render_rgb_u8`` of the same
    views; prints frames/s; (c) the static replayed scene with
-   ``publish2gui=True`` answering 5 queued requests, byte-identical to a
-   run without the GUI, forward launches = frames written + frames served;
+   ``publish2gui=True`` answering 3 queued requests (one poll per chunk),
+   byte-identical to a run without the GUI, forward launches = chunks
+   written + frames served;
    (d) ``train_gaussian_splatting_wrapper(gui=True)`` for 20 iterations with
    a client asking for 3 frames, launches 20 + 3 forward and 20 backward,
    the parameters bitwise equal to a run without the GUI; (e) the
@@ -144,8 +157,8 @@ Phases, each of which fails the run (nonzero exit) on any miss:
    ``render_frame`` / ``rasterize`` bitwise.
 
 After phase 5 the compact-readback case runs the static replayed scene once
-more with and without ``compact_readback``: every PNG and JSON byte-identical;
-prints the bytes moved per frame both ways and frames/s.
+more with and without ``compact_readback`` (chunks of 8): every PNG and JSON
+byte-identical; prints the bytes moved per frame both ways and frames/s.
 
 ``--from-phase N`` (N > 3) skips phases 3 to N - 1 while a later phase is
 worked on (12: the build, the compact-readback case and phases 12-16; 16:
@@ -200,6 +213,7 @@ OPS_BWD_KEPT = 53
 OPS_BWD_KEPT_OBJ = 10
 FWD_ABS_GATE = 1e-3  # forward kernel vs plain: max |diff| <= this x max(1, channel peak)
 CHUNK_SWEEP = (128, 256, 512, 1024)  # entries per work item timed beside CHUNK_ENTRIES
+MAIN_PATH_CHUNKS = (1, 8, 8, 1)  # phase 5's frame_chunk turns
 SIM_STEPS = 310  # the reference's drop length (GenerationConfig.simulation_steps)
 SETTLE_STEPS = 620  # the smoke scene continued until every object lies still
 PHYSICS_VARIANTS = 256  # simulate_variants' batch in phase 9
@@ -454,7 +468,7 @@ def _read_png(path):
 
 def scene_pegasus(data: Path, out: Path, name: str, mode: str, num_cameras: int,
                   n_interp: int, device, compact_readback: bool = False,
-                  publish2gui: bool = False):
+                  publish2gui: bool = False, frame_chunk: int = 8):
     """A PEGASUS replaying the committed trajectory, set up up to
     ``init_start_position`` (the loading is not part of any timing)."""
     from pegasus_tpu_torch.assets.registry import Asset
@@ -471,7 +485,7 @@ def scene_pegasus(data: Path, out: Path, name: str, mode: str, num_cameras: int,
         render_width=WIDTH, num_cameras=num_cameras, simulation_steps=310,
         num_camera_interpolation_steps=n_interp, dataset_base_path=str(out),
         seed=3, QUIET=True, device=device, compact_readback=compact_readback,
-        publish2gui=publish2gui,
+        publish2gui=publish2gui, frame_chunk=frame_chunk,
     )
     peg.physics_file = str(TRAJECTORY)
     peg.selected_env_name = SMOKE_ENV[0]
@@ -480,111 +494,279 @@ def scene_pegasus(data: Path, out: Path, name: str, mode: str, num_cameras: int,
     return peg
 
 
+LAUNCH_KEYS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
+
+
+def trace_summary(prof) -> dict:
+    """Device ms (device-side rows of ``key_averages``), kernel launches and
+    the forward kernel's device ms of a ``torch.profiler`` trace."""
+    from torch.autograd import DeviceType
+
+    avgs = prof.key_averages()
+    # device-side rows only: a CPU op's self device time repeats its kernels'
+    device_rows = [a for a in avgs if a.device_type == DeviceType.CUDA]
+    device_ms = sum(a.self_device_time_total for a in device_rows) / 1e3
+    require(device_ms > 0, "the profiler recorded no device time")
+    return {"device_ms": device_ms,
+            "launches": sum(a.count for a in avgs if a.key in LAUNCH_KEYS),
+            "composite_ms": sum(a.self_device_time_total for a in device_rows
+                                if "composite_tiles" in a.key) / 1e3}
+
+
 def run_scene(data: Path, out: Path, name: str, mode: str, num_cameras: int,
-              n_interp: int, device, save_bop: bool = True):
+              n_interp: int, device, save_bop: bool = True, frame_chunk: int = 8,
+              trace: bool = False):
     """Generate and save one scene; returns (pegasus, frames, host stats).
 
     Host stats: wall seconds of ``generate_dataset`` + ``save2bop``, the
     process's CPU seconds over the same span (all threads, the PNG writer
-    pool included) and the 1-minute load average at its start."""
+    pool included), the 1-minute load average at its start, and the forward
+    kernel's launches and ``bin_splats``' host reads in the run.  With
+    ``trace`` the run is traced by ``torch.profiler`` (``trace_summary``
+    under "trace")."""
+    import contextlib
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pegasus_tpu_torch.ops import rasterize_cuda
+    from pegasus_tpu_torch.ops.binning import bin_splats
     from pegasus_tpu_torch.testing import SMOKE_OBJECTS
 
-    peg = scene_pegasus(data, out, name, mode, num_cameras, n_interp, device)
+    peg = scene_pegasus(data, out, name, mode, num_cameras, n_interp, device,
+                        frame_chunk=frame_chunk)
     load = os.getloadavg()[0]
-    t0, c0 = time.perf_counter(), time.process_time()
-    peg.generate_dataset(MODALITIES, save_bop=save_bop, save_video=False)
-    peg.save2bop()
-    host = {"wall_s": time.perf_counter() - t0, "cpu_s": time.process_time() - c0,
-            "loadavg_1m": load}
+    launches, reads = rasterize_cuda.composite_tiles.launches, bin_splats.host_reads
+    tracer = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if trace
+              else contextlib.nullcontext())
+    with tracer as prof:
+        t0, c0 = time.perf_counter(), time.process_time()
+        peg.generate_dataset(MODALITIES, save_bop=save_bop, save_video=False)
+        peg.save2bop()
+        torch.cuda.synchronize()
+        host = {"wall_s": time.perf_counter() - t0, "cpu_s": time.process_time() - c0,
+                "loadavg_1m": load}
+    host["launches"] = rasterize_cuda.composite_tiles.launches - launches
+    host["host_reads"] = bin_splats.host_reads - reads
+    host["fetch_stall_s"] = peg.last_render_stats["fetch_stall_s"]
+    if trace:
+        host["trace"] = trace_summary(prof)
     n_frames = len(peg.viewport_cam_list)
     if save_bop:
         check_bop_tree(out, name, 1, n_frames, len(SMOKE_OBJECTS))
     return peg, n_frames, host
 
 
-def profile_main_path(data: Path, out: Path, device, card: str) -> None:
-    """``--profile``: frames/s of both scenes with and without PNG writes
-    (runs in the order without, with, with, without), each with its host
-    stats; then one ``torch.profiler`` trace of the static scene with PNG
-    writes: device time, kernel launches and the compositor's share."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def same_trees(a: Path, b: Path) -> list:
+    """Files of scene tree ``a`` that differ from ``b`` byte for byte (or
+    are missing from it); fails if ``b`` holds other files."""
+    files = sorted(p.relative_to(a) for p in a.rglob("*") if p.is_file())
+    require(files and files == sorted(p.relative_to(b) for p in b.rglob("*") if p.is_file()),
+            f"{a.name} and {b.name} hold other files")
+    return [str(f) for f in files if (a / f).read_bytes() != (b / f).read_bytes()]
 
+
+def main_path_phase(data: Path, out: Path, device, card: str) -> dict:
+    """Phase 5: the static (40 frames) and dynamic (8 frames) scene at
+    ``frame_chunk`` 1 and 8 in the order 1, 8, 8, 1, each turn three runs:
+    PNG writes on, off, and on under ``torch.profiler``; then C = 3 once.
+    Every run: K1 launches and ``bin_splats`` host reads = its chunks; the
+    trees at C = 1, 3 and 8 byte-identical.  Then the 300-frame static scene
+    at C = 8.  Returns {"frames", "chunks"} of all these runs."""
+    import torch
+
+    total = {"frames": 0, "chunks": 0}
     for mode, n_cams in (("static", 10), ("dynamic", 2)):
-        for j, save_bop in enumerate((False, True, True, False)):
-            _, n, host = run_scene(data, out, f"prof_{mode}_{j}", mode, n_cams, 4,
-                                   device, save_bop=save_bop)
-            print(f"profile {mode} save_bop={save_bop}: {n} frames "
-                  f"{n / host['wall_s']:.3f} frames/s "
-                  f"cpu_s={host['cpu_s']:.3f} wall_s={host['wall_s']:.4f} "
-                  f"loadavg_1m={host['loadavg_1m']:.2f} card={card}", flush=True)
+        trees = {}
+        for turn, c in enumerate(MAIN_PATH_CHUNKS + (3,)):
+            runs = {}
+            for kind, save_bop, trace in (("png", True, False), ("nopng", False, False),
+                                          ("trace", True, True)):
+                if c == 3 and kind != "png":
+                    continue
+                name = f"smoke_{mode}_c{c}_{turn}_{kind}"
+                _, n, host = run_scene(data, out, name, mode, n_cams, 4, device, save_bop=save_bop,
+                                       frame_chunk=c, trace=trace)
+                chunks = -(-n // c)
+                require(n == (40 if mode == "static" else 8), (mode, n))
+                require(host["launches"] == chunks and host["host_reads"] == chunks,
+                        f"{name}: {host['launches']} launches, {host['host_reads']} host reads "
+                        f"for {chunks} chunks")
+                total["frames"] += n
+                total["chunks"] += chunks
+                runs[kind] = host
+                if kind == "png":
+                    trees.setdefault(c, out / name / "train" / "000001")
+            if c == 3:
+                continue
+            tr = runs["trace"]["trace"]
+            wall_ms = runs["trace"]["wall_s"] * 1e3
+            print(f"main path {mode} C={c} turn {turn}: {n} frames, "
+                  f"{n / runs['png']['wall_s']:.3f} frames/s with PNG writes, "
+                  f"{n / runs['nopng']['wall_s']:.3f} without; K1 launches/frame "
+                  f"{runs['png']['launches'] / n:.4f}, bin_splats host reads/frame "
+                  f"{runs['png']['host_reads'] / n:.4f}, fetch_stall_s {runs['png']['fetch_stall_s']}; "
+                  f"trace (PNG writes on): "
+                  f"wall {wall_ms:.3f} ms, device {tr['device_ms']:.3f} ms, busy share "
+                  f"{tr['device_ms'] / wall_ms:.4f}, {tr['launches'] / n:.2f} kernel launches/frame, "
+                  f"composite_tiles {tr['composite_ms']:.3f} ms; host {json.dumps(runs['png'])} "
+                  f"card={card}", flush=True)
+        for c in (3, 8):
+            differ = same_trees(trees[1], trees[c])
+            require(not differ, f"{mode}: frame_chunk={c} wrote other bytes than 1: {differ[:5]}")
+        print(f"main path {mode}: the trees at frame_chunk 1, 3 and 8 byte-identical "
+              f"({sum(1 for p in trees[1].rglob('*') if p.is_file())} files)", flush=True)
+        torch.cuda.empty_cache()
 
-    peg = scene_pegasus(data, out, "prof_trace", "static", 10, 4, device)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        peg.generate_dataset(MODALITIES, save_bop=True, save_video=False)
-        peg.save2bop()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    avgs = prof.key_averages()
-    # device-side rows only: a CPU op's self device time repeats its kernels'
-    device_rows = [a for a in avgs if a.device_type == DeviceType.CUDA]
-    device_ms = sum(a.self_device_time_total for a in device_rows) / 1e3
-    launches = sum(a.count for a in avgs
-                   if a.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
-    launch_host_ms = sum(a.self_cpu_time_total for a in avgs
-                         if a.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")) / 1e3
-    comp_ms = sum(a.self_device_time_total for a in device_rows if "composite_tiles" in a.key) / 1e3
-    top_ops = sorted((a for a in avgs if a.key.startswith("aten::")),
-                     key=lambda a: -a.count)[:5]
-    n = len(peg.viewport_cam_list)
-    print(f"profile trace static {n} frames (PNG writes on): wall {wall_ms:.3f} ms, "
-          f"device time {device_ms:.3f} ms (busy share {device_ms / wall_ms:.4f}), "
-          f"{launches} kernel launches ({launches / n:.1f}/frame, host {launch_host_ms:.3f} ms), "
-          f"composite_tiles {comp_ms:.3f} ms ({100 * comp_ms / device_ms:.2f} % of device time); "
-          f"most-called ops {[(a.key, a.count) for a in top_ops]} card={card}", flush=True)
-    print(avgs.table(sort_by="self_device_time_total", row_limit=12), flush=True)
+    # GenerationConfig's default scene: 10 cameras x 30 interpolation steps
+    _, n, host = run_scene(data, out, "smoke_static_300", "static", 10, 30, device, frame_chunk=8)
+    require(n == 300, n)
+    require(host["launches"] == host["host_reads"] == 300 // 8 + 1, host)
+    total["frames"] += n
+    total["chunks"] += host["launches"]
+    print(f"main path static 300 frames C=8: {n / host['wall_s']:.3f} frames/s with PNG writes, "
+          f"K1 launches/frame {host['launches'] / n:.4f}, host reads/frame {host['host_reads'] / n:.4f}, "
+          f"fetch_stall_s {host['fetch_stall_s']}; host {json.dumps(host)} card={card}",
+          flush=True)
+    return total
 
 
-def stage_times(peg, card: str):
-    """Per-stage device time of the static scene's frames, by CUDA events."""
+def stage_pass(scene, cams, colors, k: int, chunk: int, background, events: bool):
+    """The static scene's frames through the generation stages in chunks
+    of ``chunk``, each stage in a ``record_function`` range ``stage/<name>``
+    and, with ``events``, between CUDA events; returns {stage: ms of
+    stream span summed over the chunks}."""
     import torch
+    from torch.profiler import record_function
 
+    from pegasus_tpu_torch.camera import CameraBatch
     from pegasus_tpu_torch.ops.binning import bin_splats
     from pegasus_tpu_torch.ops.projection import project_gaussians
-    from pegasus_tpu_torch.ops.rasterize_cuda import (composite_tiles,
-                                                       outputs_from_channels)
-    from pegasus_tpu_torch.ops.render import (decode_modalities, encode_frame,
-                                              pack_frame_bytes)
-    from pegasus_tpu_torch.scene.composition import pose_scene
+    from pegasus_tpu_torch.ops.rasterize_cuda import composite_tiles, outputs_from_channels
+    from pegasus_tpu_torch.ops.render import decode_modalities, encode_frame, pack_frame_bytes
 
-    k = len(peg.semantic_colors) + 1
-    t_pose = cuda_ms(lambda: pose_scene(peg.template, *peg._body_poses_at(peg._initial_step)), 5)
-    scene = pose_scene(peg.template, *peg._body_poses_at(peg._initial_step))
+    batch = CameraBatch.stack(cams)
     names = ("project", "bin", "composite", "pack")
     total = dict.fromkeys(names, 0.0)
-    cams = peg.viewport_cam_list
-    for cam in cams:
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-        ev[0].record()
-        proj = project_gaussians(scene, cam)
-        ev[1].record()
-        bins = bin_splats(proj, cam.width, cam.height)
-        ev[2].record()
-        out = composite_tiles(bins, cam.width, cam.height, k)
-        ev[3].record()
-        frame = decode_modalities(outputs_from_channels(out, peg.background, k),
-                                  peg._semantic_colors_dev)
-        pack_frame_bytes(encode_frame(frame))
-        ev[4].record()
-        ev[4].synchronize()
-        for i, n in enumerate(names):
-            total[n] += ev[i].elapsed_time(ev[i + 1])
-    per = {n: round(v / len(cams), 4) for n, v in total.items()}
-    per["pose_once_per_scene"] = round(t_pose, 4)
-    print(f"stage device ms/frame (static scene, {len(cams)} frames, 210k splats, "
-          f"{WIDTH}x{HEIGHT}): {json.dumps(per)} card={card}", flush=True)
+    h, w = batch.height, batch.width
+    for lo in range(0, len(cams), chunk):
+        part = batch[lo : lo + chunk]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)] if events else None
+        if events:
+            ev[0].record()
+        with record_function("stage/project"):
+            proj = project_gaussians(scene, part)
+        if events:
+            ev[1].record()
+        with record_function("stage/bin"):
+            bins = bin_splats(proj, w, h)
+        if events:
+            ev[2].record()
+        with record_function("stage/composite"):
+            out = composite_tiles(bins, w, h, k).reshape(len(part), h, w, -1)
+        if events:
+            ev[3].record()
+        with record_function("stage/pack"):
+            frame = decode_modalities(outputs_from_channels(out, background, k), colors)
+            pack_frame_bytes(encode_frame(frame))
+        if events:
+            ev[4].record()
+            ev[4].synchronize()
+            for i, n in enumerate(names):
+                total[n] += ev[i].elapsed_time(ev[i + 1])
+    return total
+
+
+def stage_times(data: Path, out: Path, device, card: str):
+    """Per-stage time of the static scene's frames at C = 1 and C = 8: the
+    stream span between CUDA events around each stage (for a host-bound
+    stage, the time the host takes to enqueue its launches) beside the
+    profiler's device time of each stage's kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pegasus_tpu_torch.scene.composition import pose_scene
+
+    peg = scene_pegasus(data, out, "stages", "static", 10, 4, device)
+    k = len(peg.semantic_colors) + 1
+    poses = peg._body_poses_at(peg._initial_step)
+    t_pose = cuda_ms(lambda: pose_scene(peg.template, *poses), 5)
+    scene = pose_scene(peg.template, *poses)
+    cams, n = peg.viewport_cam_list, len(peg.viewport_cam_list)
+    args = (scene, cams, peg._semantic_colors_dev, k)
+    for c in (1, 8):
+        stage_pass(*args, c, peg.background, events=False)  # warm
+        span = stage_pass(*args, c, peg.background, events=True)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            stage_pass(*args, c, peg.background, events=False)
+            torch.cuda.synchronize()
+        device_ms, unassigned = stage_split(prof, "stage/")
+        span = {s: round(v / n, 4) for s, v in span.items()}
+        dev = {s: round(v / n, 4) for s, v in device_ms.items()}
+        print(f"stage ms/frame (static scene, {n} frames, C={c}, 210k splats, {WIDTH}x{HEIGHT}): "
+              f"stream span {json.dumps(span)}; profiler device time {json.dumps(dev)} "
+              f"(outside any stage {unassigned / n:.4f}); pose once per scene {t_pose:.4f} ms "
+              f"card={card}", flush=True)
+    peg.pegasus_dataset.close()
+
+
+def chunk_kernel_check(data: Path, out: Path, device, card: str) -> dict:
+    """K1 at the main path's chunk shape: one launch over 8 frames of the
+    static scene bitwise equal to the 8 frames' own launches, and within
+    ``forward_vs_plain``'s limits of the plain version on the chunk; the
+    long-segment stress tiles stacked over 3 frames likewise.  Times the
+    chunk launch (plain, kernel, kernel, plain) beside the 8 single launches
+    and the chunk's bound.  Run outside the main path's launch count."""
+    import numpy as np
+    import torch
+
+    from pegasus_tpu_torch.camera import CameraBatch
+    from pegasus_tpu_torch.ops.binning import bin_splats
+    from pegasus_tpu_torch.ops.projection import ProjectedGaussians, project_gaussians
+    from pegasus_tpu_torch.ops.rasterize_cuda import (CHUNK_ENTRIES, composite_tiles,
+                                                       composite_tiles_torch)
+    from pegasus_tpu_torch.scene.composition import pose_scene
+    from pegasus_tpu_torch.testing import make_tile_pileup
+
+    peg = scene_pegasus(data, out, "chunk_kernel", "static", 10, 4, device)
+    k = len(peg.semantic_colors) + 1
+    scene = pose_scene(peg.template, *peg._body_poses_at(peg._initial_step))
+    cams = peg.viewport_cam_list[:8]
+    bins = bin_splats(project_gaussians(scene, CameraBatch.stack(cams)), WIDTH, HEIGHT)
+    frames = [bin_splats(project_gaussians(scene, cam), WIDTH, HEIGHT) for cam in cams]
+    chunk = composite_tiles(bins, WIDTH, HEIGHT, k)
+    for f, one in enumerate(frames):
+        require(torch.equal(chunk[f], composite_tiles(one, WIDTH, HEIGHT, k)),
+                f"chunk frame {f} differs from its own launch")
+    err = forward_vs_plain("chunk of 8 static frames", bins, WIDTH, HEIGHT, k)
+    ms, plain_ms, runs = time_pair(lambda: composite_tiles(bins, WIDTH, HEIGHT, k),
+                                   lambda: composite_tiles_torch(bins, WIDTH, HEIGHT, k), n_plain=1)
+    frames_ms = cuda_ms(lambda: [composite_tiles(b, WIDTH, HEIGHT, k) for b in frames], 20)
+    bound_ms, bound_by = compositor_bounds(bins, WIDTH, HEIGHT, k)["fwd"]
+    frame_bounds = sum(compositor_bounds(b, WIDTH, HEIGHT, k)["fwd"][0] for b in frames)
+    print(f"chunk kernel 8 frames {WIDTH}x{HEIGHT} K={k}: entries={bins.entry_splat.numel()}, "
+          f"bitwise equal to 8 single launches; one launch {runs[1]:.4f}/{runs[2]:.4f} ms, 8 single "
+          f"launches {frames_ms:.4f} ms, plain {runs[0]:.4f}/{runs[3]:.4f} ms; bound {bound_ms:.4f} ms "
+          f"({bound_by}; the 8 frames' bounds sum to {frame_bounds:.4f}) card={card}", flush=True)
+
+    c, w, h = CHUNK_ENTRIES, 128, 64
+    piles = [make_tile_pileup(np.random.default_rng(5 + f),
+                              {0: 10 * c + 37, 1: c - 1, 2: c, 3: c + 1, 12: 40}, w, h, k, device=device)
+             for f in range(3)]
+    stacked = ProjectedGaussians(*(torch.stack([getattr(p, name) for p in piles])
+                                   for name in ProjectedGaussians._fields))
+    stress = bin_splats(stacked, w, h)
+    stress_err = forward_vs_plain(f"stress K={k} over 3 frames", stress, w, h, k)
+    out3 = composite_tiles(stress, w, h, k)
+    for f in range(3):
+        one = bin_splats(ProjectedGaussians(*(x[f] for x in stacked)), w, h)
+        require(torch.equal(out3[f], composite_tiles(one, w, h, k)), f"stress frame {f} differs")
+    require(torch.equal(out3, composite_tiles(stress, w, h, k)), "two stress chunk launches differ")
+    print(f"chunk kernel stress K={k} over 3 frames: bitwise equal to 3 single launches and "
+          f"repeatable, max_abs_err {stress_err:.3e} card={card}", flush=True)
+    peg.pegasus_dataset.close()
+    return {"ms": ms, "plain_ms": plain_ms, "frames_ms": frames_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": max(err, stress_err), "frames": len(cams)}
 
 
 def build_kernels():
@@ -601,7 +783,7 @@ def build_kernels():
 
 def pair_counts(bins, width, height, chunk: int = 128):
     """(in-image pixel-entry pairs, kept pairs, kept pairs of object splats)
-    of one frame's bins: the alpha tests and the compositing work the
+    of one frame's or one chunk's bins: the alpha tests and the compositing work the
     kernels must do on these inputs (kept: the kernels' keep rule, from the
     plain versions' walk)."""
     from pegasus_tpu_torch.ops.binning import P_OBJ
@@ -632,8 +814,9 @@ def compositor_bounds(bins, width, height, k):
     pairs, kept, kept_obj = pair_counts(bins, width, height)
     n, m, n_tiles = bins.params.shape[1], bins.entry_splat.numel(), bins.tile_start.numel()
     inputs = 4 * (12 * n + m + 2 * n_tiles)
-    image = 4 * height * width * (5 + 3 * k + 2)
-    per_pixel = height * width * (2 * (5 + k) + 2 * k + 2)
+    pixels = bins.n_frames * height * width
+    image = 4 * pixels * (5 + 3 * k + 2)
+    per_pixel = pixels * (2 * (5 + k) + 2 * k + 2)
     fwd = kernel_bound(OPS_ALPHA_TEST * pairs + OPS_FWD_KEPT * kept, inputs + image)
     bwd = kernel_bound(OPS_ALPHA_TEST * pairs + OPS_BWD_KEPT * kept + OPS_BWD_KEPT_OBJ * kept_obj
                        + per_pixel, inputs + 2 * image + 4 * 10 * m)
@@ -878,8 +1061,7 @@ def profile_training(trainer, state, cams, gts, card, steps: int = 20):
     device_rows = [a for a in avgs
                    if a.device_type == DeviceType.CUDA and not a.key.startswith("train_step/")]
     device_ms = sum(a.self_device_time_total for a in device_rows) / 1e3
-    launch_keys = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
-    launches = sum(a.count for a in avgs if a.key in launch_keys)
+    launches = sum(a.count for a in avgs if a.key in LAUNCH_KEYS)
     require(device_ms > 0, "the profiler recorded no device time")
     bwd_ms = sum(a.self_device_time_total for a in device_rows if "composite_tiles_bwd" in a.key) / 1e3
     fwd_ms = sum(a.self_device_time_total for a in device_rows
@@ -1066,8 +1248,7 @@ def physics_on_card(data: Path, out: Path, device, card: str, large_batch: bool)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         rb.simulate_batch_eager(params, batch0, **{**kw, "n_steps": 5})
         torch.cuda.synchronize()
-    launch_keys = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
-    launches = sum(a.count for a in prof.key_averages() if a.key in launch_keys) / 5
+    launches = sum(a.count for a in prof.key_averages() if a.key in LAUNCH_KEYS) / 5
 
     dynamic = (params.inv_mass > 0) & params.body_mask
     # the rest gates, on the same drop continued to SETTLE_STEPS (the graph
@@ -1140,7 +1321,8 @@ def physics_on_card(data: Path, out: Path, device, card: str, large_batch: bool)
 
 def generation_with_physics(data: Path, out: Path, device, card: str) -> int:
     """Phase 10: ``run_generation`` drops, renders and writes one static and
-    one dynamic scene of one dataset; returns the forward kernel's launches."""
+    one dynamic scene of one dataset (``config.frame_chunk`` 8: 5 + 1
+    chunks); returns the forward kernel's launches."""
     from pegasus_tpu_torch.config import GenerationConfig
     from pegasus_tpu_torch.eval import check_bop_dataset
     from pegasus_tpu_torch.generate import run_generation
@@ -1167,7 +1349,7 @@ def generation_with_physics(data: Path, out: Path, device, card: str) -> int:
     records = static.records + dynamic.records
     require([r["scene_id"] for r in records] == [1, 2], records)
     require([r["frames"] for r in records] == [40, 8], records)
-    require(launches == 48, f"composite_tiles launched {launches} times for 48 frames")
+    require(launches == 6, f"composite_tiles launched {launches} times for 48 frames in 6 chunks")
     again = run_generation(config("dynamic", 2, 2, 4), [env], objs, device=device)
     require(not again.records and rasterize_cuda.composite_tiles.launches == launches,
             "a resumed run rendered again")
@@ -1270,9 +1452,9 @@ def scene_variants(device, card: str) -> int:
 
 def compact_readback_case(data: Path, out: Path, device, card: str) -> int:
     """The static replayed scene of phase 5 twice, without and with
-    ``compact_readback``: every PNG and JSON byte-identical; prints the
-    bytes moved per frame both ways and frames/s.  Returns the forward
-    kernel's launches."""
+    ``compact_readback`` (the default frame_chunk, 8: 5 chunks): every PNG
+    and JSON byte-identical; prints the bytes moved per frame both ways and
+    frames/s.  Returns the forward kernel's launches (one per chunk)."""
     from pegasus_tpu_torch.ops import rasterize_cuda
 
     rasterize_cuda.composite_tiles.launches = 0
@@ -1292,7 +1474,7 @@ def compact_readback_case(data: Path, out: Path, device, card: str) -> int:
     differ = [str(f) for f in files if (a / f).read_bytes() != (b / f).read_bytes()]
     require(not differ, f"compact readback changed {differ[:5]}")
     (s0, n, st0), (s1, _, st1) = runs["readback_packed"], runs["readback_compact"]
-    require(launches == 2 * n, f"{launches} launches for {2 * n} frames")
+    require(launches == 2 * -(-n // 8), f"{launches} launches for 2 x {n} frames in chunks of 8")
     require(st1["readback_bytes"] < st0["readback_bytes"], (st0, st1))
     print(f"compact readback static {n} frames: {len(files)} PNG and JSON files byte-identical; "
           f"bytes/frame packed {st0['readback_bytes'] / n:.0f} compact {st1['readback_bytes'] / n:.0f} "
@@ -1900,17 +2082,18 @@ def wire_viewer_on_card(ply: str, device, card: str) -> int:
 
 def publish2gui_on_card(data: Path, out: Path, device, card: str) -> int:
     """Phase 16 (c): the static replayed scene of phase 5 with
-    ``publish2gui=True`` and a client asking for 5 frames at 640x480: 5
-    answered, the BOP tree byte-identical to a run without the GUI,
-    forward launches = frames written + frames served.  Returns the
-    forward launches of the GUI run."""
+    ``publish2gui=True`` and a client asking for 3 frames at 640x480 (the
+    GUI is polled once per chunk: 5 polls for 40 frames): 3 answered, the
+    BOP tree byte-identical to a run without the GUI, forward launches =
+    chunks written + frames served.  Returns the forward launches of the
+    GUI run."""
     import filecmp
     import threading
 
     from pegasus_tpu_torch import network_gui as ng
     from pegasus_tpu_torch.pegasus import PEGASUS
 
-    n_req = 5
+    n_req = 3
     peg_plain, n_frames, _ = run_scene(data, out, "gui_off", "static", 10, 4, device)
     del peg_plain
     old_port = PEGASUS.PORT
@@ -1937,7 +2120,8 @@ def publish2gui_on_card(data: Path, out: Path, device, card: str) -> int:
         ng.close()
     require(len(replies) == n_req and all(v == str(data) for _, v in replies),
             f"publish2gui answered {len(replies)} of {n_req}")
-    require(launches == n_frames + n_req, f"forward launches {launches} for {n_frames} + {n_req}")
+    n_chunks = -(-n_frames // 8)
+    require(launches == n_chunks + n_req, f"forward launches {launches} for {n_chunks} + {n_req}")
     a, b = (out / name / "train" / "000001" for name in ("gui_off", "gui_on"))
     files = sorted(str(p.relative_to(a)) for p in a.rglob("*") if p.is_file())
     require(files == sorted(str(p.relative_to(b)) for p in b.rglob("*") if p.is_file()),
@@ -2067,8 +2251,7 @@ def asset_and_viewing_phase(tmp: Path, data: Path, out: Path, device, card: str)
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also run phase 6 (frames/s with and without PNG writes, profiler trace) "
-                             "and simulate_variants(1000)")
+                        help="also time simulate_variants(1000) in phase 9")
     parser.add_argument("--from-phase", type=int, default=1, metavar="N",
                         help="skip phases 3 to N - 1 (N > 3); such a run prints no result lines; "
                              "12 runs the build, the compact-readback case and phases 12-16, "
@@ -2120,31 +2303,23 @@ def main() -> int:
                                 env_splats=150_000, obj_splats=10_000)
         print(f"png writer: {'native' if _load_native() is not None else 'imageio'}", flush=True)
         if whole:
-            rasterize_cuda.composite_tiles.launches = 0
-            peg, n_static, host_static = run_scene(data, out, "smoke_static", "static", 10, 4, dev)
-            _, n_dynamic, host_dynamic = run_scene(data, out, "smoke_dynamic", "dynamic", 2, 4, dev)
+            from pegasus_tpu_torch.ops.binning import bin_splats
+
+            rasterize_cuda.composite_tiles.launches = bin_splats.host_reads = 0
+            main_path = main_path_phase(data, out, dev, card)
             gen_launches = rasterize_cuda.composite_tiles.launches
-            n_frames = n_static + n_dynamic
-            require((n_static, n_dynamic) == (40, 8), (n_static, n_dynamic))
-            require(gen_launches == n_frames,
-                    f"composite_tiles launched {gen_launches} times for {n_frames} frames")
-            print(f"main path: static {n_static} frames {n_static / host_static['wall_s']:.3f} frames/s, "
-                  f"dynamic {n_dynamic} frames {n_dynamic / host_dynamic['wall_s']:.3f} frames/s "
-                  f"(wall, incl. PNG writes; 640x480, all modalities) "
-                  f"readback_bytes={peg.last_render_stats['readback_bytes']} "
-                  f"fetch_stall_s={peg.last_render_stats['fetch_stall_s']} card={card}", flush=True)
-            print(f"main path host: static {json.dumps(host_static)} dynamic {json.dumps(host_dynamic)} "
-                  f"cpus={len(os.sched_getaffinity(0))}", flush=True)
-            stage_times(peg, card)
-            del peg
+            require(gen_launches == main_path["chunks"] and bin_splats.host_reads == gen_launches,
+                    f"composite_tiles launched {gen_launches} times, bin_splats read the host "
+                    f"{bin_splats.host_reads} times for {main_path['chunks']} chunks")
+            print(f"main path: {main_path['frames']} frames in {main_path['chunks']} chunks, "
+                  f"{gen_launches} forward-kernel launches, cpus={len(os.sched_getaffinity(0))}",
+                  flush=True)
+            chunk_k1 = chunk_kernel_check(data, out, dev, card)
+            stage_times(data, out, dev, card)
             torch.cuda.empty_cache()
         if whole or args.from_phase == 12:
             compact_launches = compact_readback_case(data, out, dev, card)
         if whole:
-            # -- phase 6 ------------------------------------------------------------------------
-            if args.profile:
-                profile_main_path(data, out, dev, card)
-
             # -- phase 7: backward kernel vs plain ----------------------------------------------
             from pegasus_tpu_torch.ops.binning import bin_splats
             from pegasus_tpu_torch.ops.projection import project_gaussians
@@ -2212,7 +2387,7 @@ def main() -> int:
         "launches_gui": periphery["forward"]["gui"],
         "launches_render_wrappers": periphery["forward"]["render_wrappers"],
         "max_abs_err": max(max_abs_err, bwd_train["fwd_max_abs_err"], bwd_210k["fwd_max_abs_err"],
-                           *(f for f, _ in stress)),
+                           chunk_k1["max_abs_err"], *(f for f, _ in stress)),
         "chunk_entries": CHUNK_ENTRIES,
         "items": timings["210k"]["hist"]["items"][CHUNK_ENTRIES],
         "items_1m": timings["1M"]["hist"]["items"][CHUNK_ENTRIES],
@@ -2225,6 +2400,13 @@ def main() -> int:
         "ms_1m": timings["1M"]["ms"],
         "plain_ms_1m": timings["1M"]["plain_ms"],
         "bound_ms_1m": timings["1M"]["bound_ms"],
+        # one launch over the main path's chunk of 8 frames (phase 5's static scene)
+        "frames_chunk": chunk_k1["frames"],
+        "ms_chunk": chunk_k1["ms"],
+        "frames_ms_chunk": chunk_k1["frames_ms"],
+        "plain_ms_chunk": chunk_k1["plain_ms"],
+        "bound_ms_chunk": chunk_k1["bound_ms"],
+        "bound_by_chunk": chunk_k1["bound_by"],
         "ms_train": bwd_train["fwd_ms"],
         "plain_ms_train": bwd_train["fwd_plain_ms"],
         "bound_ms_train": bwd_train["fwd"][0],

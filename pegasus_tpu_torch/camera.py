@@ -11,7 +11,9 @@ Port of ``pegasus_tpu/camera.py``.  Conventions:
 
 The extrinsics are float32 tensors on ``device`` (the card by default); the field of view is kept
 as float32 host scalars, so per-frame projection needs no device round trip
-for the intrinsics.
+for the intrinsics.  ``CameraBatch`` stacks same-resolution cameras into
+tensors with a leading camera axis (the reference's ``_stack_cams``), which
+``project_gaussians`` projects in one pass.
 """
 
 from __future__ import annotations
@@ -118,13 +120,69 @@ class Camera:
         return T
 
 
+@dataclass(frozen=True)
+class CameraBatch:
+    """C same-resolution cameras as tensors with a leading camera axis.
+
+    Every per-camera value holds the float32 bits that the single
+    ``Camera`` gives the projection: ``camera_center`` is each camera's own
+    ``Camera.camera_center``, and ``tan_x`` ... ``focal_y`` are the host
+    floats of ``tan_half_fov`` and ``focal_px``.  Built once per camera
+    path (``stack``; one host-to-device copy) and sliced per chunk (views)."""
+
+    R_w2c: torch.Tensor  # [C, 3, 3] float32
+    t_w2c: torch.Tensor  # [C, 3]
+    camera_center: torch.Tensor  # [C, 3]
+    tan_x: torch.Tensor  # [C] float32 tan(fovx / 2)
+    tan_y: torch.Tensor
+    focal_x: torch.Tensor  # [C] float32 pixels
+    focal_y: torch.Tensor
+    width: int
+    height: int
+
+    @classmethod
+    def stack(cls, cams) -> "CameraBatch":
+        if not cams:
+            raise ValueError("no cameras")
+        w, h = cams[0].width, cams[0].height
+        if any(c.width != w or c.height != h for c in cams):
+            raise ValueError("CameraBatch requires uniform resolution")
+        scalars = torch.tensor(
+            [c.tan_half_fov() + c.focal_px() for c in cams], dtype=torch.float32,
+            device=cams[0].device,
+        )
+        tan_x, tan_y, focal_x, focal_y = scalars.T
+        return cls(
+            R_w2c=torch.stack([c.R_w2c for c in cams]),
+            t_w2c=torch.stack([c.t_w2c for c in cams]),
+            camera_center=torch.stack([c.camera_center for c in cams]),
+            tan_x=tan_x, tan_y=tan_y, focal_x=focal_x, focal_y=focal_y,
+            width=w, height=h,
+        )
+
+    def __len__(self) -> int:
+        return self.R_w2c.shape[0]
+
+    def __getitem__(self, index: slice) -> "CameraBatch":
+        """The cameras ``index`` (a slice) as a batch of views."""
+        return CameraBatch(
+            *(getattr(self, f)[index] for f in ("R_w2c", "t_w2c", "camera_center",
+                                                 "tan_x", "tan_y", "focal_x", "focal_y")),
+            width=self.width, height=self.height,
+        )
+
+    @property
+    def device(self) -> torch.device:
+        return self.R_w2c.device
+
+
 def stack_cameras(cams) -> dict:
     """Same-resolution cameras -> one stacked batch, as numpy arrays with a
     leading camera axis (``R_w2c`` [B, 3, 3], ``t_w2c`` [B, 3], ``fovx`` /
     ``fovy`` [B]; ``width`` / ``height`` ints): what
     ``interop.cameras_from_numpy`` reads back into cameras.  The JAX
-    package stacks into one batched Camera; the port's batched paths take
-    sequences of cameras."""
+    package stacks into one batched Camera; the port's chunked projection
+    takes a ``CameraBatch``."""
     if not cams:
         raise ValueError("no cameras")
     w, h = cams[0].width, cams[0].height

@@ -1,4 +1,4 @@
-"""Copied verbatim from ``pegasus_tpu/config.py``; only the comments on ``splat_budget``, ``frame_chunk`` and ``compact_readback`` and the default dataset name differ.
+"""Copied verbatim from ``pegasus_tpu/config.py``; only the comments on ``splat_budget`` and ``compact_readback`` and the default dataset name differ.
 
 Declarative generation config.
 
@@ -53,9 +53,8 @@ class GenerationConfig:
     splat_budget: Optional[int] = None  # sequential path: pad every scene to this
     # many splats; the sharded path reads it nowhere (no static shapes to keep)
     resume: bool = True  # skip scenes with finalized annotations
-    frame_chunk: int = 8  # kept so that a generation_config.json written by the
-    # JAX package loads; unused here (one frame per dispatch)
-    compact_readback: bool = False  # device-side RLE of each frame's sparse planes
+    frame_chunk: int = 8  # frames per device dispatch/readback
+    compact_readback: bool = False  # device-side RLE of each chunk's sparse planes
 
     def save(self, path) -> None:
         with open(path, "w") as f:

@@ -54,12 +54,15 @@ __device__ __forceinline__ bool entry_alpha(float fx, float fy, float mx,
 // ---- work items: each tile's segment cut into runs of at most `chunk` ----
 //
 // Tile t holds max(1, ceil(count_t / chunk)) items, numbered tile by tile
-// in order (item i of the frame is item c of its tile, i = first_t + c).
-// Both kernels launch one block per item over a grid of ceil(M / chunk) +
-// n_tiles blocks, the bound ops/rasterize_cuda.py::max_items computes
-// without reading the counts on the host; blocks past the last item exit.
-// The table is not stored: every block derives its own (tile, first item)
-// from tile_count, a scan of n_tiles ints from L2.
+// in order (item i of the launch is item c of its tile, i = first_t + c).
+// The tiles are those of every frame a launch composites: C * n_tiles for
+// the forward's chunk of C frames (frame after frame), n_tiles for the
+// backward's one frame.  Both kernels launch one block per item over a
+// grid of ceil(M / chunk) + (tiles) blocks, the bound
+// ops/rasterize_cuda.py::max_items computes without reading the counts on
+// the host; blocks past the last item exit.  The table is not stored: every
+// block derives its own (tile, first item) from tile_count, a scan of the
+// launch's tile counts from L1 / L2 (9,600 ints for 8 frames at 640x480).
 
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
@@ -67,11 +70,11 @@ __device__ __forceinline__ int items_of(int count, int chunk) {
   return count > chunk ? (count + chunk - 1) / chunk : 1;
 }
 
-// The tile that holds frame item `item` and the index of that tile's first
-// item, for the whole block: (-1, 0) past the last item.  Thread j sums
-// the items of tiles [j * per, (j + 1) * per), a warp scan and the warp
-// totals give its exclusive prefix, and the one thread whose range holds
-// `item` walks its tiles.  `s_warp` holds PX / 32 + 2 ints.
+// The tile (of the launch's n_tiles) that holds item `item` and the index
+// of that tile's first item, for the whole block: (-1, 0) past the last
+// item.  Thread j sums the items of tiles [j * per, (j + 1) * per), a warp
+// scan and the warp totals give its exclusive prefix, and the one thread
+// whose range holds `item` walks its tiles.  `s_warp` holds PX / 32 + 2 ints.
 __device__ __forceinline__ void locate_item(const int* __restrict__ tile_count,
                                             int n_tiles, int chunk, int item,
                                             int* s_warp, int& tile,

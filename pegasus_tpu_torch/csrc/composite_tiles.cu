@@ -5,7 +5,12 @@
 // _composite_kernel_mt (and its single-tile twin _composite_kernel), called
 // from composite_tiles_pallas, and the training forward
 // pegasus_tpu/ops/pallas_vjp.py::_forward_call.  Same per-pixel math, not
-// the same blocks.  Output [H, W, F], F = 5 + 3*k_out + 2:
+// the same blocks.  One launch composites a chunk of C frames (the
+// reference's frame_chunk, whose lax.map calls the TPU kernel once per
+// frame): the bins' tiles run over all C frames, frame f's tiles being
+// f * n_tiles .. (f + 1) * n_tiles - 1 (ops/binning.py), and the work items,
+// partials and per-tile counters range over C * n_tiles tiles.  Output
+// [C, H, W, F], F = 5 + 3*k_out + 2:
 //   0:3 rgb (premultiplied, no background), 3 depth, 4 alpha,
 //   5:5+K seg, 5+K:5+2K vis (env excluded), 5+2K:5+3K amodal
 //   log-transmittance, 5+3K t_full, 5+3K+1 t_noenv.
@@ -70,19 +75,19 @@ struct FwdArgs {
   const int* entry_splat;
   const int* tile_start;
   const int* tile_count;
-  float* out;       // [H, W, F]
+  float* out;       // [C, H, W, F]
   float* partials;  // [n_items][F][PX]
-  int* tile_done;   // [n_tiles], zero at launch: items of the tile finished
-  int width, height, ntx, n_tiles, k_out, chunk;
+  int* tile_done;   // [C * n_tiles], zero at launch: items of the tile finished
+  int width, height, ntx, n_tiles, n_frames, k_out, chunk;  // n_tiles: of one frame
 };
 
 // Combine the n_items partials of the tile whose first item is `first`, in
-// item order (composite_common.cuh), into pixel (px, py) of [H, W, F].  The
-// partials were written by other blocks of this launch: __ldcg reads them
-// from L2, past this SM's L1.
+// item order (composite_common.cuh), into pixel `pix` of [C, H, W, F] (its
+// index in the C x H x W pixels).  The partials were written by other
+// blocks of this launch: __ldcg reads them from L2, past this SM's L1.
 template <int K>
 __device__ __forceinline__ void combine_items(const FwdArgs& a, int first, int n_items,
-                                              int tid, int px, int py) {
+                                              int tid, int64_t pix) {
   const int k_out = a.k_out;
   const int f = 5 + 3 * k_out + 2;
   float t_acc = 1.f, t_ne_acc = 1.f;
@@ -110,7 +115,7 @@ __device__ __forceinline__ void combine_items(const FwdArgs& a, int first, int n
     t_ne_acc *= __ldcg(p + (5 + 3 * k_out + 1) * PX);
   }
 
-  float* o = a.out + (static_cast<int64_t>(py) * a.width + px) * f;
+  float* o = a.out + pix * f;
 #pragma unroll
   for (int ch = 0; ch < 5; ++ch) o[ch] = acc[ch];
 #pragma unroll
@@ -143,17 +148,22 @@ __global__ void __launch_bounds__(PX, min_blocks<K>()) composite_tiles_kernel(Fw
 
   const int item = blockIdx.x;
   int tile, first;
-  locate_item(a.tile_count, a.n_tiles, a.chunk, item, s_warp, tile, first);
+  locate_item(a.tile_count, a.n_frames * a.n_tiles, a.chunk, item, s_warp, tile, first);
   if (tile < 0) return;  // past the last item: the grid is a bound
   const int c = item - first;
   const int count = a.tile_count[tile];
   const int lo = a.tile_start[tile] + c * a.chunk;
   const int n = max(0, min(a.chunk, count - c * a.chunk));
 
+  // the tile's frame and its place in the frame: the pixel guard is the
+  // frame's own, so a frame writes nothing past its last row or column
+  const int frame = tile / a.n_tiles;
+  const int local = tile - frame * a.n_tiles;
   const int tid = threadIdx.x;
-  const int px = (tile % a.ntx) * TILE + tid % TILE;
-  const int py = (tile / a.ntx) * TILE + tid / TILE;
+  const int px = (local % a.ntx) * TILE + tid % TILE;
+  const int py = (local / a.ntx) * TILE + tid / TILE;
   const bool inside = px < a.width && py < a.height;
+  const int64_t pix = (static_cast<int64_t>(frame) * a.height + py) * a.width + px;
   const float fx = static_cast<float>(px);
   const float fy = static_cast<float>(py);
 
@@ -233,7 +243,7 @@ __global__ void __launch_bounds__(PX, min_blocks<K>()) composite_tiles_kernel(Fw
     step = PX;
   } else {
     if (!inside) return;
-    o = a.out + (static_cast<int64_t>(py) * a.width + px) * f;
+    o = a.out + pix * f;
     step = 1;
   }
   o[0 * step] = acc_r;
@@ -264,7 +274,7 @@ __global__ void __launch_bounds__(PX, min_blocks<K>()) composite_tiles_kernel(Fw
   __syncthreads();
   if (!s_warp[0]) return;
   __threadfence();
-  if (inside) combine_items<K>(a, first, n_items, tid, px, py);
+  if (inside) combine_items<K>(a, first, n_items, tid, pix);
 }
 
 template <int K>
@@ -275,31 +285,35 @@ int launch(const FwdArgs& a, int n_items, cudaStream_t st) {
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes).  `partials` is scratch of
-// n_items x (5 + 3*k_out + 2) x 256 floats, n_items >= ceil(M / chunk) +
-// n_tiles (ops/rasterize_cuda.py::max_items); its rows for tiles of more
-// than one item hold the per-item partials afterwards.  `tile_done` is
-// scratch of ntx * nty ints, zeroed here.  Enqueues the memset and the
-// kernel on `stream`, does not synchronise, allocates nothing; returns the
-// first CUDA error (cudaErrorInvalidValue for k_out outside 1..32, no
-// tiles, chunk < 1 or too few items).
+// Plain C entry point (loaded with ctypes).  `n_splats` is the row length
+// of `params` (C * N for a chunk of C = n_frames frames).  `partials` is
+// scratch of n_items x (5 + 3*k_out + 2) x 256 floats, n_items >=
+// ceil(M / chunk) + n_frames * ntx * nty (ops/rasterize_cuda.py::max_items);
+// its rows for tiles of more than one item hold the per-item partials
+// afterwards.  `tile_done` is scratch of n_frames * ntx * nty ints, zeroed
+// here.  Enqueues the memset and the kernel on `stream`, does not
+// synchronise, allocates nothing; returns the first CUDA error
+// (cudaErrorInvalidValue for k_out outside 1..32, no tiles or frames,
+// chunk < 1 or too few items).
 extern "C" int composite_tiles_launch(const float* params, int64_t n_splats,
                                       const int* entry_splat,
                                       const int* tile_start,
                                       const int* tile_count, float* out,
                                       float* partials, int* tile_done,
                                       int n_items, int width, int height,
-                                      int ntx, int nty, int k_out, int chunk,
-                                      void* stream) {
+                                      int ntx, int nty, int n_frames,
+                                      int k_out, int chunk, void* stream) {
   const int n_tiles = ntx * nty;
-  if (k_out < 1 || k_out > 32 || n_tiles < 1 || chunk < 1 || n_items < n_tiles)
+  if (k_out < 1 || k_out > 32 || n_tiles < 1 || n_frames < 1 || chunk < 1 ||
+      n_items < n_frames * n_tiles)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(tile_done, 0, n_tiles * sizeof(int), st);
+  cudaError_t err =
+      cudaMemsetAsync(tile_done, 0, n_frames * n_tiles * sizeof(int), st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const FwdArgs a{params,   n_splats,  entry_splat, tile_start, tile_count,
                   out,      partials,  tile_done,   width,      height,
-                  ntx,      n_tiles,   k_out,       chunk};
+                  ntx,      n_tiles,   n_frames,    k_out,      chunk};
   if (k_out <= 1) return launch<1>(a, n_items, st);
   if (k_out <= 2) return launch<2>(a, n_items, st);
   if (k_out <= 4) return launch<4>(a, n_items, st);

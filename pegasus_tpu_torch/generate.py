@@ -85,6 +85,7 @@ def run_generation(
             seed=config.seed,
             splat_budget=config.splat_budget,
             unit_scale=config.unit_scale,
+            frame_chunk=config.frame_chunk,
             compact_readback=config.compact_readback,
             device=device,
         )

@@ -34,6 +34,11 @@ class GaussianCloud:
       rot       [N, 4]      wxyz quaternion (normalized on use)
       object_id [N]         int32 body id (0 = environment)
       alive     [N]         bool, False for padding splats
+
+    A cloud posed C ways at once (``scene.composition.pose_scene`` of C
+    poses) holds xyz [C, N, 3], rot [C, N, 4] and f_rest [C, N, R, 3]; its
+    other fields and ``num_splats`` are per splat, and only
+    ``project_gaussians`` and ``pose_frame`` read it.
     """
 
     xyz: torch.Tensor
@@ -95,11 +100,15 @@ class GaussianCloud:
 
     @property
     def num_splats(self) -> int:
-        return self.xyz.shape[0]
+        return self.alive.shape[0]
 
     @property
     def sh_degree(self) -> int:
-        return _SH_DEGREE_OF_REST[self.f_rest.shape[1]]
+        return _SH_DEGREE_OF_REST[self.f_rest.shape[-2]]
+
+    def pose_frame(self, j: int) -> "GaussianCloud":
+        """Pose ``j`` of a cloud posed C ways: an ordinary cloud (views)."""
+        return self.replace(xyz=self.xyz[j], rot=self.rot[j], f_rest=self.f_rest[j])
 
     # -- activations -------------------------------------------------------
 
@@ -114,8 +123,10 @@ class GaussianCloud:
         return quat.normalize(self.rot)
 
     def get_features(self) -> torch.Tensor:
-        """[N, 1 + R, 3] concatenated SH (DC first)."""
-        return torch.cat([self.f_dc, self.f_rest], dim=1)
+        """[N, 1 + R, 3] concatenated SH (DC first); [C, N, 1 + R, 3] for a
+        cloud posed C ways."""
+        f_dc = self.f_dc if self.f_rest.dim() == 3 else self.f_dc.expand(*self.f_rest.shape[:-2], 1, 3)
+        return torch.cat([f_dc, self.f_rest], dim=-2)
 
     def get_rgb(self) -> torch.Tensor:
         """Base colour from the DC term only, clipped to [0, 1]

@@ -15,7 +15,14 @@ floor/clip/onscreen rule, binning.py:331-345):
   4. per-tile [start, start + count) from ``searchsorted`` on the tile ids.
 
 The entry count is exactly the sum of the clipped bbox areas, so nothing
-can be truncated.  The reference's TPU-only machinery is dropped: the
+can be truncated.
+
+A chunk of C frames (``ProjectedGaussians`` of [C, N] columns) bins in one
+pass: frame f's splat s is splat f * N + s of the chunk, its tiles are
+tiles f * n_tiles .. (f + 1) * n_tiles - 1, and the key is
+``(f * n_tiles + tile) << 32 | float-bits(depth)``, so one stable sort
+orders every frame's entries exactly as binning that frame alone would,
+and one host read sizes the whole chunk.  The reference's TPU-only machinery is dropped: the
 static-cap a_small / mid / big slot buckets and their footprint clamp,
 ``entry_cap`` and the overflow flag, the PACKED8 fixed-point rows
 (binning.py:1-31, 57-76) and the ``_gather_rows_structured`` VJP (a
@@ -56,14 +63,15 @@ class TileBins(NamedTuple):
     """Depth-ordered per-tile entry segments over a per-splat parameter table.
 
     Tile t's entries are entry_splat[tile_start[t] : tile_start[t] +
-    tile_count[t]], front to back.  Tiles are row-major: t = ty * n_tiles_x
-    + tx.
+    tile_count[t]], front to back.  Tiles are row-major within a frame and
+    frames follow each other: t = (frame * n_tiles_y + ty) * n_tiles_x + tx;
+    splats likewise, N per frame.
     """
 
-    params: torch.Tensor  # [PARAM_DIM, N] float32
+    params: torch.Tensor  # [PARAM_DIM, n_frames * N] float32
     entry_splat: torch.Tensor  # [M] int32 splat index per entry
-    tile_start: torch.Tensor  # [n_tiles] int32
-    tile_count: torch.Tensor  # [n_tiles] int32
+    tile_start: torch.Tensor  # [n_frames * n_tiles] int32
+    tile_count: torch.Tensor  # [n_frames * n_tiles] int32
     n_tiles_x: int
     n_tiles_y: int
     max_object_id: int  # largest object id among binned splats (-1 if none)
@@ -72,7 +80,8 @@ class TileBins(NamedTuple):
     # count: the backward sums a splat's gradients in this fixed order
     # instead of with atomics
     splat_order: torch.Tensor  # [M] int64
-    splat_count: torch.Tensor  # [N] int64
+    splat_count: torch.Tensor  # [n_frames * N] int64
+    n_frames: int = 1
 
 
 def tile_bboxes(proj: ProjectedGaussians, width: int, height: int, tile: int = TILE):
@@ -117,23 +126,30 @@ def pack_params(proj: ProjectedGaussians) -> torch.Tensor:
 def bin_splats(
     proj: ProjectedGaussians, width: int, height: int, tile: int = TILE
 ) -> TileBins:
+    """Bin one frame ([N] columns) or a chunk of C frames ([C, N] columns)."""
     dev = proj.mean_x.device
     ntx = -(-width // tile)
     nty = -(-height // tile)
     n_tiles = ntx * nty
-    n = proj.mean_x.shape[0]
+    n = proj.mean_x.shape[-1]
+    n_frames = proj.mean_x.shape[0] if proj.mean_x.dim() == 2 else 1
+    if proj.mean_x.dim() == 2:
+        proj = ProjectedGaussians(*(f.reshape(-1) for f in proj))
 
     tx0, ty0, w_t, area = tile_bboxes(proj, width, height, tile)
     live_obj = torch.where(area > 0, proj.object_id.to(torch.int64), -1)
     obj_max = torch.cat([live_obj, live_obj.new_full((1,), -1)]).max()
-    # the one host sync of a frame: the entry count sizes the expansion
+    # the one host sync of a frame or chunk: the entry count sizes the expansion
     m, max_object_id = torch.stack([area.sum(), obj_max]).tolist()
+    bin_splats.host_reads += 1
 
-    splat = torch.repeat_interleave(torch.arange(n, device=dev), area, output_size=m)
+    splat = torch.repeat_interleave(torch.arange(n_frames * n, device=dev), area, output_size=m)
     first = torch.cumsum(area, 0) - area  # exclusive prefix sum
     j = torch.arange(m, device=dev) - first[splat]  # entry's rank in its bbox
     w_s = w_t[splat]
     tile_id = (ty0[splat] + j // w_s) * ntx + tx0[splat] + j % w_s
+    if n_frames > 1:
+        tile_id += (splat // n) * n_tiles
 
     depth_bits = proj.depth.contiguous().view(torch.int32).to(torch.int64)[splat]
     key = (tile_id << 32) | depth_bits
@@ -146,7 +162,7 @@ def bin_splats(
     splat_order[order] = torch.arange(m, device=dev)
 
     bounds = torch.searchsorted(
-        sorted_key >> 32, torch.arange(n_tiles + 1, device=dev, dtype=torch.int64)
+        sorted_key >> 32, torch.arange(n_frames * n_tiles + 1, device=dev, dtype=torch.int64)
     )
     return TileBins(
         params=pack_params(proj),
@@ -158,4 +174,8 @@ def bin_splats(
         max_object_id=max_object_id,
         splat_order=splat_order,
         splat_count=area,
+        n_frames=n_frames,
     )
+
+
+bin_splats.host_reads = 0  # blocking device-to-host reads, one per call

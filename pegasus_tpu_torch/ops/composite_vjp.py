@@ -71,6 +71,8 @@ def _bwd_lib():
 def _check_grad(bins: TileBins, grad_out: torch.Tensor, out, partials, width: int, height: int,
                 max_objects: int, chunk_entries: int) -> None:
     want = (height, width, num_channels(max_objects))
+    if bins.n_frames != 1:
+        raise ValueError(f"the backward composites one frame; the bins hold {bins.n_frames}")
     if out is None or partials is None:
         raise ValueError(
             "composite_tiles_backward needs the forward's output and per-item partials "

@@ -4,7 +4,13 @@ Port of ``pegasus_tpu/ops/projection.py``, the geometric front end of every
 rasterizer: world->camera transform, near-cull at 0.2, the 1.3*tan(fov/2)
 clamp, perspective Jacobian, cov2D + 0.3 px low-pass, conic inversion,
 radius ceil(3*sqrt(lambda1)), ndc2pix mean and SH -> RGB view-dependent
-colour.  Plain elementwise torch on [N] columns.
+colour.  Plain elementwise torch on [N] columns, or on [C, N] columns for a
+``CameraBatch`` of C cameras (a chunk of frames), where the cloud may carry
+a leading pose axis too (``scene.composition.pose_scene`` of C poses).  The
+per-camera terms are then [C, 1] columns holding the same float32 values
+that one camera's Python floats and 0-d tensors give, and every operation
+is elementwise, so each frame of a chunk gets the bits of its own
+single-camera projection.
 """
 
 from __future__ import annotations
@@ -13,13 +19,14 @@ from typing import NamedTuple
 
 import torch
 
-from pegasus_tpu_torch.camera import Camera
+from pegasus_tpu_torch.camera import Camera, CameraBatch
 from pegasus_tpu_torch.gs.cloud import GaussianCloud
 from pegasus_tpu_torch.utils import sh as shlib
 
 
 class ProjectedGaussians(NamedTuple):
-    """Screen-space splats as flat columns (one entry per input splat)."""
+    """Screen-space splats as flat columns (one entry per input splat):
+    [N], or [C, N] for a chunk of C frames (every field the same shape)."""
 
     mean_x: torch.Tensor  # [N] pixel coords
     mean_y: torch.Tensor
@@ -36,36 +43,51 @@ class ProjectedGaussians(NamedTuple):
     valid: torch.Tensor  # bool
 
 
+def _camera_terms(cam: Camera | CameraBatch):
+    """(rotation entries r[0..8], t[0..2], camera centre c[0..2], tan_x,
+    tan_y, f_x, f_y, clamp limits 1.3 tan): Python floats and 0-d tensors
+    for one camera, [C, 1] float32 columns for a batch.  A Python float
+    enters a float32 kernel rounded to float32, so the batch rounds the
+    float64 product 1.3 tan the same way."""
+    if isinstance(cam, Camera):
+        tanx, tany = cam.tan_half_fov()
+        return (cam.R_w2c.reshape(9).unbind(0), cam.t_w2c.unbind(0), cam.camera_center.unbind(0),
+                tanx, tany, *cam.focal_px(), 1.3 * tanx, 1.3 * tany)
+    col = lambda v: v[:, None]  # noqa: E731
+    lim = lambda tan: col((tan.double() * 1.3).float())  # noqa: E731
+    return (tuple(map(col, cam.R_w2c.reshape(-1, 9).unbind(1))), tuple(map(col, cam.t_w2c.unbind(1))),
+            tuple(map(col, cam.camera_center.unbind(1))), col(cam.tan_x), col(cam.tan_y),
+            col(cam.focal_x), col(cam.focal_y), lim(cam.tan_x), lim(cam.tan_y))
+
+
+def _like(column: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """A per-splat [N] column broadcast to ``ref``'s [C, N] (a view)."""
+    return column if column.shape == ref.shape else column.expand_as(ref)
+
+
 def project_gaussians(
     cloud: GaussianCloud,
-    cam: Camera,
+    cam: Camera | CameraBatch,
     sh_degree: int | None = None,
     scaling_modifier: float = 1.0,
     near: float = 0.2,
 ) -> ProjectedGaussians:
-    x, y, z = cloud.xyz.unbind(1)
-    R = cam.R_w2c
-    t = cam.t_w2c
-    r = R.reshape(9).unbind(0)  # row-major 0-d tensors
+    x, y, z = cloud.xyz.unbind(-1)
+    r, t, c, tanx, tany, fx, fy, limx, limy = _camera_terms(cam)
 
     tx_c = r[0] * x + r[1] * y + r[2] * z + t[0]
     ty_c = r[3] * x + r[4] * y + r[5] * z + t[1]
     tz_c = r[6] * x + r[7] * y + r[8] * z + t[2]
     in_front = tz_c > near
 
-    tanx, tany = cam.tan_half_fov()
-    fx, fy = cam.focal_px()
-
     tz_safe = torch.where(in_front, tz_c, torch.ones_like(tz_c))
-    limx = 1.3 * tanx
-    limy = 1.3 * tany
     txtz = torch.clamp(tx_c / tz_safe, -limx, limx)
     tytz = torch.clamp(ty_c / tz_safe, -limy, limy)
     tx = txtz * tz_safe
     ty = tytz * tz_safe
 
     # world-space covariance Sigma = Rq S^2 Rq^T, per component
-    qw, qx, qy, qz = cloud.get_rotation().unbind(1)
+    qw, qx, qy, qz = cloud.get_rotation().unbind(-1)
     r00 = 1 - 2 * (qy * qy + qz * qz)
     r01 = 2 * (qx * qy - qw * qz)
     r02 = 2 * (qx * qz + qw * qy)
@@ -76,7 +98,7 @@ def project_gaussians(
     r21 = 2 * (qy * qz + qw * qx)
     r22 = 1 - 2 * (qx * qx + qy * qy)
     s = scaling_modifier * cloud.get_scaling()
-    s0, s1, s2 = s[:, 0] ** 2, s[:, 1] ** 2, s[:, 2] ** 2
+    s0, s1, s2 = s[..., 0] ** 2, s[..., 1] ** 2, s[..., 2] ** 2
     sg00 = r00 * r00 * s0 + r01 * r01 * s1 + r02 * r02 * s2
     sg01 = r00 * r10 * s0 + r01 * r11 * s1 + r02 * r12 * s2
     sg02 = r00 * r20 * s0 + r01 * r21 * s1 + r02 * r22 * s2
@@ -129,11 +151,10 @@ def project_gaussians(
     # view-dependent color: direction from the camera center to the splat
     if sh_degree is None:
         sh_degree = cloud.sh_degree
-    c = cam.camera_center
     dx, dy, dz = x - c[0], y - c[1], z - c[2]
     inv_n = 1.0 / torch.clamp(torch.sqrt(dx * dx + dy * dy + dz * dz), min=1e-12)
     dirs = torch.stack([dx * inv_n, dy * inv_n, dz * inv_n], dim=-1)
-    feats = cloud.get_features()[:, : (sh_degree + 1) ** 2, :]
+    feats = cloud.get_features()[..., : (sh_degree + 1) ** 2, :]
     color = torch.clamp(shlib.eval_sh(sh_degree, feats, dirs) + 0.5, min=0.0)
 
     valid = cloud.alive & in_front & nondegenerate
@@ -144,13 +165,13 @@ def project_gaussians(
         conic_a=conic_a,
         conic_b=conic_b,
         conic_c=conic_c,
-        color_r=color[:, 0],
-        color_g=color[:, 1],
-        color_b=color[:, 2],
-        opacity=cloud.get_opacity()[:, 0],
+        color_r=color[..., 0],
+        color_g=color[..., 1],
+        color_b=color[..., 2],
+        opacity=_like(cloud.get_opacity()[:, 0], tz_c),
         depth=tz_c,
         radius=torch.where(valid, radius, torch.zeros_like(radius)),
-        object_id=cloud.object_id,
+        object_id=_like(cloud.object_id, tz_c),
         valid=valid,
     )
 

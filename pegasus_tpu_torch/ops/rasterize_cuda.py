@@ -14,7 +14,10 @@ does about it) is at the top of ``csrc/composite_tiles.cu``.  The kernel
 cuts every tile's segment into work items of at most ``CHUNK_ENTRIES``
 entries, one block each, and combines the items of a tile in order; the
 plain version composites and combines with the same association, so the
-CPU tests exercise the combine too.
+CPU tests exercise the combine too.  Bins of a chunk of C frames
+(``bin_splats`` of [C, N] columns, ``TileBins.n_frames``) composite in one
+launch, or one plain call, into [C, H, W, F]; ``rasterize_chunk`` renders a
+``CameraBatch`` that way.
 
 Output channels of both versions, per pixel ([H, W, F], F = 5 + 3K + 2):
   0:3 rgb (premultiplied, no background), 3 depth, 4 alpha, 5:5+K seg,
@@ -34,7 +37,7 @@ from typing import NamedTuple
 
 import torch
 
-from pegasus_tpu_torch.camera import Camera
+from pegasus_tpu_torch.camera import Camera, CameraBatch
 from pegasus_tpu_torch.gs.cloud import GaussianCloud
 from pegasus_tpu_torch.ops import binning as B
 from pegasus_tpu_torch.ops.binning import TileBins, bin_splats
@@ -117,7 +120,7 @@ def kernel_lib(source: str, entry: str, argtypes: list) -> ctypes.CDLL:
 
 
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-FWD_ARGTYPES = [_P, _I64, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _P]
+FWD_ARGTYPES = [_P, _I64, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _P]
 
 
 def _kernel_lib():
@@ -125,13 +128,14 @@ def _kernel_lib():
 
 
 def max_items(n_entries: int, n_tiles: int, chunk_entries: int) -> int:
-    """Bound on the work items of a frame, from sizes the host knows:
-    every tile holds max(1, ceil(count / C)) <= count / C + 1 items."""
+    """Bound on the work items of ``n_tiles`` tiles (a frame's, or a
+    chunk's), from sizes the host knows: every tile holds max(1, ceil(count
+    / C)) <= count / C + 1 items."""
     return -(-n_entries // chunk_entries) + n_tiles
 
 
 def tile_items(bins: TileBins, chunk_entries: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """(items per tile, index of each tile's first item), int64 [n_tiles]:
+    """(items per tile, index of each tile's first item), int64 [C * n_tiles]:
     the numbering both kernels derive on the device (composite_common.cuh)."""
     count = bins.tile_count.long()
     n = torch.where(count > chunk_entries, -(-count // chunk_entries), torch.ones_like(count))
@@ -140,28 +144,34 @@ def tile_items(bins: TileBins, chunk_entries: int) -> tuple[torch.Tensor, torch.
 
 def partials_shape(bins: TileBins, max_objects: int, chunk_entries: int) -> tuple[int, int, int]:
     """[items bound, F, 256]: one row of per-pixel partials per work item."""
-    n_tiles = bins.n_tiles_x * bins.n_tiles_y
+    n_tiles = bins.n_frames * bins.n_tiles_x * bins.n_tiles_y
     return (max_items(bins.entry_splat.numel(), n_tiles, chunk_entries),
             num_channels(max_objects), B.TILE * B.TILE)
+
+
+def out_shape(bins: TileBins, width: int, height: int, max_objects: int) -> tuple:
+    """[H, W, F] for one frame's bins, [C, H, W, F] for a chunk's."""
+    frames = (bins.n_frames,) if bins.n_frames > 1 else ()
+    return (*frames, height, width, num_channels(max_objects))
 
 
 def launch_composite(fn, bins: TileBins, width: int, height: int, max_objects: int,
                      chunk_entries: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch a ``composite_tiles_launch`` entry point (``fn``, argtypes
-    ``FWD_ARGTYPES``) on the current stream -> (out [H, W, F], partials)."""
+    ``FWD_ARGTYPES``) on the current stream -> (out ``out_shape``, partials)."""
     dev = bins.params.device
-    out = torch.empty((height, width, num_channels(max_objects)), dtype=torch.float32, device=dev)
+    out = torch.empty(out_shape(bins, width, height, max_objects), dtype=torch.float32, device=dev)
     shape = partials_shape(bins, max_objects, chunk_entries)
     partials = torch.empty(shape, dtype=torch.float32, device=dev)
-    tile_done = torch.empty(bins.n_tiles_x * bins.n_tiles_y, dtype=torch.int32, device=dev)
+    tile_done = torch.empty(bins.tile_count.numel(), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = fn(
             bins.params.data_ptr(), bins.params.shape[1],
             bins.entry_splat.data_ptr(), bins.tile_start.data_ptr(),
             bins.tile_count.data_ptr(), out.data_ptr(), partials.data_ptr(),
             tile_done.data_ptr(), shape[0],
-            width, height, bins.n_tiles_x, bins.n_tiles_y, max_objects, chunk_entries,
-            torch.cuda.current_stream(dev).cuda_stream,
+            width, height, bins.n_tiles_x, bins.n_tiles_y, bins.n_frames, max_objects,
+            chunk_entries, torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"composite_tiles kernel launch failed: CUDA error {err}")
@@ -183,7 +193,7 @@ def _check_bins(bins: TileBins, width: int, height: int, max_objects: int) -> No
             f"object id {bins.max_object_id} >= max_objects={max_objects}: "
             "its seg/vis/amodal channel would be dropped"
         )
-    n_tiles = bins.n_tiles_x * bins.n_tiles_y
+    n_tiles = bins.n_frames * bins.n_tiles_x * bins.n_tiles_y
     expect = {
         "params": (bins.params, torch.float32, (B.PARAM_DIM, bins.params.shape[1])),
         "entry_splat": (bins.entry_splat, torch.int32, (bins.entry_splat.numel(),)),
@@ -205,8 +215,9 @@ def composite_tiles(
     bins: TileBins, width: int, height: int, max_objects: int,
     chunk_entries: int = CHUNK_ENTRIES, return_partials: bool = False,
 ):
-    """Composite every tile's entries front to back -> [H, W, F] float32,
-    or (out, partials) with ``return_partials``: the per-item partials
+    """Composite every tile's entries front to back -> [H, W, F] float32
+    ([C, H, W, F] for a chunk's bins, in one launch), or (out, partials)
+    with ``return_partials``: the per-item partials
     ``composite_tiles_backward`` needs (rows of tiles of more than one item;
     shape ``partials_shape``).
 
@@ -254,11 +265,11 @@ def tile_chunks(bins: TileBins, chunk: int, chunk_entries: int | None = None):
     the same products and sums, left to right).  With ``chunk_entries`` no
     step crosses a work item's boundary (a multiple of it)."""
     dev = bins.params.device
-    ntx, n_tiles = bins.n_tiles_x, bins.n_tiles_x * bins.n_tiles_y
+    ntx, n_tiles = bins.n_tiles_x, bins.tile_count.numel()
     lin = torch.arange(B.TILE * B.TILE, device=dev)
-    tiles = torch.arange(n_tiles, device=dev)
-    pxs = (tiles % ntx)[:, None] * B.TILE + lin % B.TILE
-    pys = (tiles // ntx)[:, None] * B.TILE + lin // B.TILE
+    local = torch.arange(n_tiles, device=dev) % (ntx * bins.n_tiles_y)  # the tile in its frame
+    pxs = (local % ntx)[:, None] * B.TILE + lin % B.TILE
+    pys = (local // ntx)[:, None] * B.TILE + lin // B.TILE
     start = bins.tile_start.long()
     count = bins.tile_count.long()
     entry_splat = bins.entry_splat.long()
@@ -309,16 +320,16 @@ def composite_tiles_torch(
 ):
     """Plain torch version of the kernel, same inputs and outputs.
 
-    Vectorised over tiles (``tile_chunks``): each step composites a chunk
-    of entries with an exclusive cumulative product of (1 - alpha) and
-    carries the transmittances to the next step.  Like the kernel, each
-    work item of ``chunk_entries`` entries composites from T = 1 and is
-    combined into its tile's result in order (``over``)."""
+    Vectorised over tiles (``tile_chunks``; every frame's of a chunk): each
+    step composites a chunk of entries with an exclusive cumulative product
+    of (1 - alpha) and carries the transmittances to the next step.  Like
+    the kernel, each work item of ``chunk_entries`` entries composites from
+    T = 1 and is combined into its tile's result in order (``over``)."""
     _check_bins(bins, width, height, max_objects)
     dev = bins.params.device
     k = max_objects
     ntx, nty = bins.n_tiles_x, bins.n_tiles_y
-    n_tiles = ntx * nty
+    n_tiles = bins.tile_count.numel()
     px_n = B.TILE * B.TILE
 
     count = bins.tile_count.long()
@@ -376,8 +387,9 @@ def composite_tiles_torch(
         amodal_log[act] += torch.bmm(torch.log1p(-a), onehot)
     total = finish(item, state)
 
-    out = total.reshape(nty, ntx, B.TILE, B.TILE, -1).permute(0, 2, 1, 3, 4)
-    out = out.reshape(nty * B.TILE, ntx * B.TILE, -1)[:height, :width].contiguous()
+    out = total.reshape(bins.n_frames, nty, ntx, B.TILE, B.TILE, -1).permute(0, 1, 3, 2, 4, 5)
+    out = out.reshape(bins.n_frames, nty * B.TILE, ntx * B.TILE, -1)[:, :height, :width]
+    out = out.reshape(out_shape(bins, width, height, k)).contiguous()
     return (out, partials) if return_partials else out
 
 
@@ -409,6 +421,26 @@ def rasterize(
     proj = project_gaussians(cloud, cam, sh_degree, scaling_modifier)
     bins = bin_splats(proj, cam.width, cam.height)
     out = composite_tiles(bins, cam.width, cam.height, max_objects)
+    return outputs_from_channels(out, background, max_objects)
+
+
+def rasterize_chunk(
+    cloud: GaussianCloud,
+    cams: CameraBatch,
+    background=(0.0, 0.0, 0.0),
+    sh_degree: int | None = None,
+    scaling_modifier: float = 1.0,
+    max_objects: int = 8,
+) -> RenderOutputs:
+    """``rasterize`` of C cameras at once -> RenderOutputs with a leading
+    [C] axis: one projection, one binning (one host read) and one
+    compositor launch for the chunk.  ``cloud`` is one posed scene, or a
+    scene posed C ways (one pose per camera).  Each frame has the bits of
+    ``rasterize`` of its camera on the same device."""
+    proj = project_gaussians(cloud, cams, sh_degree, scaling_modifier)
+    bins = bin_splats(proj, cams.width, cams.height)
+    out = composite_tiles(bins, cams.width, cams.height, max_objects)
+    out = out.reshape(len(cams), cams.height, cams.width, -1)
     return outputs_from_channels(out, background, max_objects)
 
 

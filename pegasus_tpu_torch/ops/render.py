@@ -11,6 +11,11 @@ tensor per frame crosses to the host; ``unpack_frame_bytes`` and
 ``_unpack_planes`` are the reference's numpy host decode, copied.  The RLE
 compact readback (``split_frame_planes``, ``rle_pack_chunk`` on the device,
 ``rle_unpack_chunk`` on the host) writes the reference's bytes.
+
+A chunk of C frames (``render_chunk``, the reference's ``lax.map`` chunk
+program) carries a leading [C] axis through ``decode_modalities``,
+``encode_frame``, ``pack_frame_bytes`` and ``split_frame_planes``, which
+work on any leading axes, so a chunk crosses to the host as one tensor.
 """
 
 from __future__ import annotations
@@ -20,15 +25,17 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from pegasus_tpu_torch.camera import Camera
+from pegasus_tpu_torch.camera import Camera, CameraBatch
 from pegasus_tpu_torch.gs.cloud import GaussianCloud, merge
-from pegasus_tpu_torch.ops.rasterize_cuda import rasterize
+from pegasus_tpu_torch.ops.rasterize_cuda import rasterize, rasterize_chunk
 from pegasus_tpu_torch.ops.rasterize_ref import RenderOutputs
 
 MASK_THRESHOLD = 0.9
 
 
 class FrameDataPoints(NamedTuple):
+    """One frame's data points; a chunk's carry a leading [C] axis."""
+
     rgb: torch.Tensor  # [H, W, 3] float in [0,1]
     depth: torch.Tensor  # [H, W] float meters
     alpha: torch.Tensor  # [H, W]
@@ -47,7 +54,9 @@ def decode_modalities(
     # channel 0 of seg/vis weights is the environment; objects are 1..K
     vis = out.vis_weights[..., 1 : k + 1]
     amodal = out.amodal[..., 1 : k + 1]
-    seg_image = torch.einsum("hwk,kc->hwc", vis, semantic_colors.to(torch.float32))
+    # the seg image reaches no written file (the host rebuilds it from the
+    # visib bits), so its contraction may round differently in a chunk
+    seg_image = torch.einsum("...k,kc->...c", vis, semantic_colors.to(torch.float32))
     return FrameDataPoints(
         rgb=torch.clamp(out.rgb, 0.0, 1.0),
         depth=out.depth,
@@ -69,6 +78,20 @@ def render_frame(
     channel 0 is the environment)."""
     out = rasterize(scene, cam, background=background,
                     max_objects=semantic_colors.shape[0] + 1)
+    return decode_modalities(out, semantic_colors)
+
+
+def render_chunk(
+    scene: GaussianCloud,
+    cams: CameraBatch,
+    semantic_colors: torch.Tensor,
+    background=(0.0, 0.0, 0.0),
+) -> FrameDataPoints:
+    """``render_frame`` of C cameras in one pass (``rasterize_chunk``):
+    data points with a leading [C] axis.  ``scene`` is one posed scene (a
+    static chunk) or a scene posed C ways (a dynamic chunk)."""
+    out = rasterize_chunk(scene, cams, background=background,
+                          max_objects=semantic_colors.shape[0] + 1)
     return decode_modalities(out, semantic_colors)
 
 
@@ -136,7 +159,8 @@ def render_semanticsegmentation_mask(cam, gs_environment, gs_object_list, color_
 
 
 class FrameEncoded(NamedTuple):
-    """Device-side encoded frame: exactly the bytes the BOP writer needs."""
+    """Device-side encoded frame: exactly the bytes the BOP writer needs (a
+    chunk's with a leading [C] axis)."""
 
     rgb_u8: torch.Tensor  # [H, W, 3] uint8
     depth_mm: torch.Tensor  # [H, W] int32 millimeters in [0, 65535] (BOP uint16)
@@ -166,7 +190,8 @@ def _packbits(masks: torch.Tensor) -> torch.Tensor:
 
 
 def pack_frame_bytes(enc: FrameEncoded) -> torch.Tensor:
-    """Pack an encoded frame into ONE uint8 tensor [H, W, 5 + ceil(2K/8)].
+    """Pack an encoded frame into ONE uint8 tensor [H, W, 5 + ceil(2K/8)]
+    (a chunk into [C, H, W, 5 + ceil(2K/8)]).
 
     Channel layout: 0:3 rgb, 3:5 depth_mm (lo, hi bytes), 5: bit-packed
     [visib_0..K-1, amodal_0..K-1].  The semantic image is not shipped: the
@@ -203,7 +228,7 @@ def rle_max_runs(chunk: int, height: int, width: int, n_planes: int) -> int:
 
 def split_frame_planes(enc: FrameEncoded) -> tuple[torch.Tensor, torch.Tensor]:
     """Encoded frame -> (dense [H,W,4] rgb+depth-lo, sparse [H,W,1+mb]
-    depth-hi+maskbits).  Concatenating (dense, sparse) channel-wise gives
+    depth-hi+maskbits), with a leading [C] for a chunk.  Concatenating (dense, sparse) channel-wise gives
     exactly the pack_frame_bytes layout."""
     d = enc.depth_mm
     lo = (d & 0xFF).to(torch.uint8)

@@ -7,12 +7,17 @@ with the port's own engine (``physics/engine.py``); a scene can also replay
 a trajectory JSON recorded by either engine (set ``physics_file`` and
 ``selected_env_name``, exactly as the reference allows).
 
-The frame loop replaces the reference's ``lax.map`` chunk programs: frames
-render one at a time on the current CUDA stream, each is encoded and packed
-into one uint8 tensor on the device and copied through pinned host memory
-with ``non_blocking=True``; while the device works on frame i, the host
-unpacks frame i-1 and hands it to the BOP writer's thread pool.  Static
-mode poses the scene once per scene, dynamic mode once per frame.
+The frame loop renders in chunks of ``frame_chunk`` frames (default 8, as
+the reference's ``lax.map`` chunk programs): one projection, one binning
+(one host read of the chunk's sizes) and one compositor launch render the
+chunk's frames, which are encoded and packed into one uint8 tensor on the
+device and copied with ``non_blocking=True`` into pinned host buffers that
+are allocated once and reused.  Up to three chunks are in flight, as in
+the reference; the host unpacks the oldest and hands its frames to the BOP
+writer's thread pool while the device works on the newer ones.  Static
+mode poses the scene once per scene, dynamic mode once per chunk (C poses
+at once).  Every frame of a chunk has the bits it has in a chunk of one,
+so the files do not depend on ``frame_chunk``.
 
 Differences from the reference, all deliberate:
   * ``device`` (default "cuda") is explicit; without a CUDA device the
@@ -21,13 +26,11 @@ Differences from the reference, all deliberate:
     ``binning_overflow_frames`` and there is no overflow warning;
   * preview videos (``VideoStreams``, which needs cv2) are built only when
     ``generate_dataset(save_video=True)``;
-  * ``compact_readback`` run-length encodes each frame's sparse planes on
-    the device (``ops/render.py::rle_pack_chunk``) with a chunk of C = 1
-    frame, since a frame is one dispatch here; the raw planes are fetched
-    only for a frame whose header reports a run-budget overflow;
-  * frames render one per dispatch, so ``frame_chunk`` is accepted and
-    ignored, and ``publish2gui`` answers a pending SIBR viewer request once
-    per frame (the reference polls once per chunk); the GUI renders with
+  * the tail chunk is just shorter: nothing is compiled for a chunk size,
+    so the reference's padding to a full chunk is not needed, and its
+    ``readback_bytes`` counts no padding frames;
+  * ``publish2gui`` answers a pending SIBR viewer request once per chunk,
+    as the reference does, with the chunk's last pose; the GUI renders with
     ``ops.rasterize_cuda.rasterize`` (the forward kernel on the card), and
     ``rasterize_fn`` takes only ``None``;
   * the GUI drops its connection on socket and protocol errors only: any
@@ -47,6 +50,7 @@ import numpy as np
 import torch
 
 from pegasus_tpu_torch.assets.registry import Asset
+from pegasus_tpu_torch.camera import CameraBatch
 from pegasus_tpu_torch.device import resolve_device
 from pegasus_tpu_torch.gs.ply import load_gs_ply
 from pegasus_tpu_torch.io import colmap as colmap_io
@@ -55,7 +59,7 @@ from pegasus_tpu_torch.io.mesh import load_mesh
 from pegasus_tpu_torch.physics.engine import MAX_BODIES, PhysicsEngine
 from pegasus_tpu_torch.ops.rasterize_cuda import refuse_rasterize_fn
 from pegasus_tpu_torch.ops.render import (encode_frame, pack_frame_bytes,
-                                          render_frame, rle_max_runs,
+                                          render_chunk, render_frame, rle_max_runs,
                                           rle_pack_chunk, rle_unpack_chunk,
                                           split_frame_planes, unpack_frame_bytes)
 from pegasus_tpu_torch.scene.camera_trajectory import create_camera_trajectory
@@ -95,13 +99,14 @@ class PEGASUS:
         unit_scale: float = 1000.0,
         QUIET: bool = False,
         publish2gui: bool = False,  # serve frames to a SIBR viewer (TCP)
-        frame_chunk: int = 8,  # accepted for the reference's scripts; one frame per dispatch here
+        frame_chunk: int = 8,  # frames per set of launches and per readback (1 = per frame)
         compact_readback: bool = False,
         freeze_dynamic_gt_pose: bool = False,  # reference quirk: dynamic
         # scene_gt keeps the t=0 pose for every frame
         device="cuda",
     ):
         refuse_rasterize_fn(rasterize_fn)
+        self.frame_chunk = max(1, int(frame_chunk))
         self.compact_readback = compact_readback
         self.device = resolve_device(device)
         self.publish2gui = publish2gui
@@ -129,6 +134,7 @@ class PEGASUS:
         self.QUIET = QUIET
         self.freeze_dynamic_gt_pose = freeze_dynamic_gt_pose
         self.video = None
+        self._pinned: Dict[int, torch.Tensor] = {}  # readback slot -> pinned host buffer
 
         # preload GS clouds (on the device) + COLMAP poses once
         self.gaussian_environment_pre_load: Dict[str, dict] = {}
@@ -275,8 +281,10 @@ class PEGASUS:
         self.bullet_ids = bullet_ids
         self._initial_step = 0 if self.mode == "dynamic" else traj.num_steps - 1
 
-    def _body_poses_at(self, step: int):
-        step = min(step, self.trajectory.num_steps - 1)
+    def _body_poses_at(self, step):
+        """Body poses at a timestep, or at each of a sequence of timesteps
+        (one host-to-device copy); steps past the drop hold its last state."""
+        step = np.minimum(step, self.trajectory.num_steps - 1)
         return poses_from_trajectory_step(
             self.trajectory.times_t, self.trajectory.times_q, step, device=self.device
         )
@@ -319,16 +327,18 @@ class PEGASUS:
 
     # -- main loop ------------------------------------------------------------------
 
-    def _to_host(self, tensors):
-        """Start device->host copies of ``tensors``; returns (host tensors,
-        event that completes with them, or None on the CPU)."""
+    def _to_host(self, slot: int, t: torch.Tensor):
+        """Start the device->host copy of ``t`` into pinned buffer ``slot``
+        (allocated at first use, grown if too small, then reused); returns
+        (host tensor, event that completes with it, or None on the CPU,
+        where ``t`` is returned as it is)."""
         if self.device.type != "cuda":
-            return [t.cpu() for t in tensors], None
-        host = []
-        for t in tensors:
-            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            h.copy_(t, non_blocking=True)
-            host.append(h)
+            return t, None
+        buf = self._pinned.get(slot)
+        if buf is None or buf.dtype != t.dtype or buf.numel() < t.numel():
+            buf = self._pinned[slot] = torch.empty(t.numel(), dtype=t.dtype, pin_memory=True)
+        host = buf[: t.numel()].view(t.shape)
+        host.copy_(t, non_blocking=True)
         event = torch.cuda.Event()
         event.record()
         return host, event
@@ -339,9 +349,17 @@ class PEGASUS:
         save_bop: bool = True,
         save_video: bool = True,
     ) -> None:
-        """Render the camera trajectory and write all requested modalities."""
+        """Render the camera trajectory and write all requested modalities.
+
+        Frames render in chunks of ``min(frame_chunk, frames)``: one set of
+        launches, one host read (binning's sizes) and one readback per
+        chunk, with up to ``DEPTH`` = 3 chunks in flight.  The tail chunk is
+        just shorter (the reference pads it to a full chunk for its
+        compiled program; eager torch compiles nothing).  The SIBR GUI is
+        polled once per chunk."""
         import tqdm
 
+        DEPTH = 3  # chunks in flight, as in the reference
         writer = self.pegasus_dataset
         n_frames = len(self.viewport_cam_list)
         n_objects = len(self.semantic_colors)
@@ -353,8 +371,13 @@ class PEGASUS:
             )
             pivots_np = self.template.pivots.cpu().numpy()
 
+        chunk = max(1, min(self.frame_chunk, n_frames))
+        cams = CameraBatch.stack(self.viewport_cam_list)
         dynamic = self.mode == "dynamic"
-        if not dynamic:
+        if dynamic:  # every frame's pose, one copy each way per scene
+            body_Rs, body_ts = self._body_poses_at(self._initial_step + np.arange(n_frames))
+            poses_np = (body_Rs.cpu().numpy(), body_ts.cpu().numpy())
+        else:
             body_R, body_t = self._body_poses_at(self._initial_step)
             scene = pose_scene(self.template, body_R, body_t)
             static_poses = (body_R.cpu().numpy(), body_t.cpu().numpy())
@@ -368,103 +391,109 @@ class PEGASUS:
         progress = tqdm.tqdm(total=n_frames, disable=self.QUIET)
         compact = self.compact_readback
         h, w = self.render_height, self.render_width
-        max_runs = rle_max_runs(1, h, w, 1 + (2 * n_objects + 7) // 8)
+        n_planes = 1 + (2 * n_objects + 7) // 8
 
         def fetch_fallback(sparse_dev):
-            stats["rle_fallback_frames"] += 1
+            stats["rle_fallback_frames"] += sparse_dev.shape[0]
             raw_sparse = sparse_dev.cpu().numpy()
             stats["readback_bytes"] += raw_sparse.nbytes
             return raw_sparse
 
-        def write(i, host, event, sparse_dev=None):
+        def write(lo, c, host, event, sparse_dev):
             t_wait = time.perf_counter()
             if event is not None:
                 event.synchronize()
             stats["fetch_stall_s"] += time.perf_counter() - t_wait
-            raw = host[0].numpy()
+            raw = host.numpy()
             stats["readback_bytes"] += raw.nbytes
-            body_R_np, body_t_np = (
-                (host[1].numpy(), host[2].numpy()) if dynamic else static_poses
-            )
             if compact:
-                chunk = rle_unpack_chunk(
-                    raw, (1, h, w), n_objects, max_runs, palette=self.semantic_colors,
+                data = rle_unpack_chunk(
+                    raw, (c, h, w), n_objects, rle_max_runs(c, h, w, n_planes),
+                    palette=self.semantic_colors,
                     fallback_sparse=lambda: fetch_fallback(sparse_dev),
                     with_depth_m=save_video,
                 )
-                data = {name: plane[0] for name, plane in chunk.items()}
             else:
                 data = unpack_frame_bytes(
                     raw, n_objects, palette=self.semantic_colors, with_depth_m=save_video
                 )
-            cam_R, cam_t = self._cam_extr_np[i]
-            writer.add_scene_camera(i)
-            if save_bop:
-                writer.write_training_data(
-                    frame_id=i,
-                    rgb=data["rgb_u8"] if "rgb" in data_points else None,
-                    depth_mm=data["depth_mm"] if ("depth" in data_points or "rgb" in data_points) else None,
-                    mask_amodal=data["mask_amodal"] if "seg_sil" in data_points else None,
-                    mask_visib=data["mask_visib"] if "seg_vis" in data_points else None,
-                    sem_mask=data["sem_u8"] if "sem_seg" in data_points else None,
+            # rgb is a view of the pinned buffer, which a later chunk
+            # reuses: the writer's pool gets a copy
+            rgb_chunk = data["rgb_u8"].copy()
+            for j in range(c):
+                i = lo + j
+                body_R_np, body_t_np = (
+                    (poses_np[0][i], poses_np[1][i]) if dynamic else static_poses
                 )
-                gt_R, gt_t = frozen_gt if frozen_gt is not None else (body_R_np, body_t_np)
-                writer.add_scene_gt(
-                    frame_id=i,
-                    cam_R_w2c=cam_R,
-                    cam_t_w2c=cam_t,
-                    object_poses=[
-                        {
-                            "bullet_id": bid,
-                            "obj_id": self.bullet_to_real_id.get(bid, bid),
-                            "R_init": gt_R[bid],
-                            "t_init": gt_t[bid],
-                        }
-                        for bid in self.bullet_ids
-                    ],
-                )
-            if save_video:
-                from pegasus_tpu_torch.scene.video import draw_object_centers
+                rgb_u8 = rgb_chunk[j]
+                cam_R, cam_t = self._cam_extr_np[i]
+                writer.add_scene_camera(i)
+                if save_bop:
+                    writer.write_training_data(
+                        frame_id=i,
+                        rgb=rgb_u8 if "rgb" in data_points else None,
+                        depth_mm=data["depth_mm"][j] if ("depth" in data_points or "rgb" in data_points) else None,
+                        mask_amodal=data["mask_amodal"][j] if "seg_sil" in data_points else None,
+                        mask_visib=data["mask_visib"][j] if "seg_vis" in data_points else None,
+                        sem_mask=data["sem_u8"][j] if "sem_seg" in data_points else None,
+                    )
+                    gt_R, gt_t = frozen_gt if frozen_gt is not None else (body_R_np, body_t_np)
+                    writer.add_scene_gt(
+                        frame_id=i,
+                        cam_R_w2c=cam_R,
+                        cam_t_w2c=cam_t,
+                        object_poses=[
+                            {
+                                "bullet_id": bid,
+                                "obj_id": self.bullet_to_real_id.get(bid, bid),
+                                "R_init": gt_R[bid],
+                                "t_init": gt_t[bid],
+                            }
+                            for bid in self.bullet_ids
+                        ],
+                    )
+                if save_video:
+                    from pegasus_tpu_torch.scene.video import draw_object_centers
 
-                centers = (
-                    np.stack([pivots_np[bid] + body_t_np[bid] for bid in self.bullet_ids])
-                    if self.bullet_ids else np.zeros((0, 3))
-                )
-                center_img = draw_object_centers(
-                    data["rgb_u8"], centers, np.asarray(writer.K), cam_R, cam_t,
-                    self.semantic_colors,
-                )
-                self.video.write_frame(
-                    rgb=data["rgb_u8"], depth=data["depth_m"],
-                    seg=data["sem_u8"].astype(np.float32) / 255.0,
-                    center_image=center_img,
-                )
-            progress.update(1)
+                    centers = (
+                        np.stack([pivots_np[bid] + body_t_np[bid] for bid in self.bullet_ids])
+                        if self.bullet_ids else np.zeros((0, 3))
+                    )
+                    center_img = draw_object_centers(
+                        rgb_u8, centers, np.asarray(writer.K), cam_R, cam_t,
+                        self.semantic_colors,
+                    )
+                    self.video.write_frame(
+                        rgb=rgb_u8, depth=data["depth_m"][j],
+                        seg=data["sem_u8"][j].astype(np.float32) / 255.0,
+                        center_image=center_img,
+                    )
+                progress.update(1)
 
-        pending = None
-        for i, cam in enumerate(self.viewport_cam_list):
-            poses = ()
+        pending = []
+        for k, lo in enumerate(range(0, n_frames, chunk)):
+            hi = min(lo + chunk, n_frames)
             if dynamic:
-                poses = self._body_poses_at(self._initial_step + i)
-                scene = pose_scene(self.template, *poses)
-            frame = render_frame(
-                scene, cam, self._semantic_colors_dev, background=self.background
-            )
-            enc = encode_frame(frame)
+                scene = pose_scene(self.template, body_Rs[lo:hi], body_ts[lo:hi])
+            enc = encode_frame(render_chunk(
+                scene, cams[lo:hi], self._semantic_colors_dev, background=self.background
+            ))
             sparse_dev = None
             if compact:
                 dense, sparse = split_frame_planes(enc)
-                packed, sparse_dev = rle_pack_chunk(dense[None], sparse[None], max_runs)
+                packed, sparse_dev = rle_pack_chunk(
+                    dense, sparse, rle_max_runs(hi - lo, h, w, n_planes)
+                )
             else:
                 packed = pack_frame_bytes(enc)
-            host, event = self._to_host((packed,) + tuple(poses))
+            host, event = self._to_host(k % DEPTH, packed)
             if self.publish2gui:
-                self._serve_gui(scene)
-            if pending is not None:
-                write(*pending)  # overlaps frame i's device work
-            pending = (i, host, event, sparse_dev)
-        if pending is not None:
-            write(*pending)
+                self._serve_gui(scene.pose_frame(-1) if dynamic else scene)
+            pending.append((lo, hi - lo, host, event, sparse_dev))
+            if len(pending) == DEPTH:
+                write(*pending.pop(0))  # overlaps the newer chunks' device work
+        for args in pending:
+            write(*args)
         progress.close()
         self.last_render_stats = {
             "readback_bytes": int(stats["readback_bytes"]),

@@ -7,7 +7,7 @@ translation by that id and applies the xyz, per-splat quaternion and SH-band
 rotations to the whole cloud at once.  Poses are absolute samples of the
 physics trajectory, rotating each body about its canonical centroid.  The
 gather is plain indexing (the reference's one-hot matmul, lines 84-90, is a
-TPU workaround).
+TPU workaround).  ``pose_scene`` also takes C poses at once.
 """
 
 from __future__ import annotations
@@ -56,12 +56,22 @@ class SceneTemplate:
 
 def pose_scene(
     template: SceneTemplate,
-    body_R: torch.Tensor,  # [B, 3, 3]
-    body_t: torch.Tensor,  # [B, 3]
+    body_R: torch.Tensor,  # [B, 3, 3], or [C, B, 3, 3] for C poses
+    body_t: torch.Tensor,  # [B, 3], or [C, B, 3]
 ) -> GaussianCloud:
     """Apply per-body rigid poses to the merged scene cloud: each body
     rotates about its centroid, then translates; splat quaternions are
-    premultiplied by the body rotation and SH bands 1..3 rotate with it."""
+    premultiplied by the body rotation and SH bands 1..3 rotate with it.
+
+    C poses (a chunk of dynamic frames, which the reference poses inside its
+    ``lax.map``) give a cloud whose xyz, rot and f_rest carry a leading pose
+    axis.  Each pose is applied alone, as the reference's map applies it:
+    a batched matmul may round otherwise than the per-pose one, and a pose
+    must give the same bits in a chunk of any size."""
+    if body_R.dim() == 4:
+        posed = [pose_scene(template, R, t) for R, t in zip(body_R, body_t)]
+        return posed[0].replace(**{name: torch.stack([getattr(c, name) for c in posed])
+                                   for name in ("xyz", "rot", "f_rest")})
     cloud = template.cloud
     bid = torch.clamp(cloud.object_id.long(), 0, template.num_bodies - 1)
 
@@ -88,15 +98,19 @@ def pose_scene(
     return cloud.replace(xyz=new_xyz, rot=new_rot, f_rest=f_rest)
 
 
-def poses_from_trajectory_step(times_t, times_q_xyzw, step: int, device=DEFAULT_DEVICE):
-    """Dense per-body (R [B,3,3], t [B,3]) float32 at a timestep.
+def poses_from_trajectory_step(times_t, times_q_xyzw, step, device=DEFAULT_DEVICE):
+    """Dense per-body (R [B,3,3], t [B,3]) float32 at a timestep, or
+    (R [C,B,3,3], t [C,B,3]) at each of a sequence of C timesteps (one
+    host-to-device copy for all of them).
 
     times_t: [B, T, 3]; times_q_xyzw: [B, T, 4] (Bullet layout).  Body 0
     (environment) is forced to identity: the env cloud is never posed."""
     device = resolve_device(device)
-    t = torch.tensor(np.asarray(times_t)[:, step, :], dtype=torch.float32, device=device)
-    q = torch.tensor(np.asarray(times_q_xyzw)[:, step, :], dtype=torch.float32, device=device)
+    steps = np.asarray(step)
+    t = torch.tensor(np.moveaxis(np.asarray(times_t)[:, steps, :], 0, -2), dtype=torch.float32, device=device)
+    q = torch.tensor(np.moveaxis(np.asarray(times_q_xyzw)[:, steps, :], 0, -2), dtype=torch.float32,
+                     device=device)
     R = quat.quat_to_rotmat(quat.xyzw_to_wxyz(q))
-    R[0] = torch.eye(3, dtype=torch.float32, device=device)
-    t[0] = 0.0
+    R[..., 0, :, :] = torch.eye(3, dtype=torch.float32, device=device)
+    t[..., 0, :] = 0.0
     return R, t

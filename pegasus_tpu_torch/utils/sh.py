@@ -126,14 +126,26 @@ _PINV = {
 }
 
 
+_CONSTANTS: dict = {}  # (band, dtype, device) -> (sample directions, pinv) on the device
+
+
+def _band_constants(band: int, dtype, device):
+    """The sample directions and the band's pseudo-inverse on ``device``,
+    copied there once (a copy from host memory waits for the device)."""
+    key = (band, dtype, device)
+    if key not in _CONSTANTS:
+        _CONSTANTS[key] = (torch.as_tensor(_SAMPLE_DIRS, dtype=dtype, device=device),
+                           torch.as_tensor(_PINV[band], dtype=dtype, device=device))
+    return _CONSTANTS[key]
+
+
 def sh_band_rotation(R: torch.Tensor, band: int) -> torch.Tensor:
     """Exact rotation matrix D_band for the real-SH band under rotation R.
 
     Y_i(R d) = sum_j D[i,j] Y_j(d); rotating an object by R maps its band
     coefficients c -> D c.  Batched over leading dims of R.
     """
-    dirs = torch.as_tensor(_SAMPLE_DIRS, dtype=R.dtype, device=R.device)
-    pinv = torch.as_tensor(_PINV[band], dtype=R.dtype, device=R.device)
+    dirs, pinv = _band_constants(band, R.dtype, R.device)
     rotated = torch.einsum("...ij,kj->...ki", R, dirs)
     B1 = _BAND_FNS[band](rotated)  # [..., 32, 2l+1]: B1[k, i] = Y_i(R d_k)
     Dt = torch.einsum("jk,...ki->...ji", pinv, B1)

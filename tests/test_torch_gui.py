@@ -174,14 +174,15 @@ def _pegasus(root, out, gui_on: bool):
         gs_env_list=[env], gs_object_list=objs, render_height=40, render_width=48,
         num_cameras=1, simulation_steps=20, num_camera_interpolation_steps=4, mode="static",
         camera_trajectory_mode="sequence", dataset_base_path=str(out), seed=1,
-        publish2gui=gui_on, QUIET=True, device=CPU,
+        publish2gui=gui_on, QUIET=True, device=CPU, frame_chunk=2,
     )
     return peg, env, objs
 
 
 def test_publish2gui_serves_during_generation(tmp_path, gui, monkeypatch):
     """PEGASUS(publish2gui=True) answers requests queued before the frame
-    loop, one per frame, and writes the same BOP tree as a run without it."""
+    loop, one per chunk (4 frames in chunks of 2), and writes the same BOP
+    tree as a run without it."""
     root = tmp_path / "data"
     build_synthetic_dataset(root, object_names=("cup_noodles_04",), env_splats=512,
                             obj_splats=128)

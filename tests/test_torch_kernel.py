@@ -15,20 +15,22 @@ gradient row must reach a cosine of 0.99999 and a max |difference| of 1e-4
 x the row's max |gradient|.  Both backward versions are fed the forward
 kernel's output and partials.  Neither kernel sums a float by an atomic:
 each combines its partial results in a fixed order, so two launches must
-agree bitwise.
+agree bitwise.  A launch over a chunk of C frames must equal the C
+launches of its frames bitwise, and pass the same limits against the plain
+version on the chunk.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from pegasus_tpu_torch.camera import Camera
+from pegasus_tpu_torch.camera import Camera, CameraBatch
 from pegasus_tpu_torch.gs.cloud import merge
 from pegasus_tpu_torch.ops.binning import bin_splats
 from pegasus_tpu_torch.ops.composite_vjp import (N_GRAD, composite_tiles_backward,
                                                  composite_tiles_backward_torch,
                                                  composite_tiles_diff)
-from pegasus_tpu_torch.ops.projection import project_gaussians
+from pegasus_tpu_torch.ops.projection import ProjectedGaussians, project_gaussians
 from pegasus_tpu_torch.ops.rasterize_cuda import (CHUNK_ENTRIES, composite_tiles,
                                                    composite_tiles_torch,
                                                    outputs_from_channels,
@@ -263,3 +265,57 @@ def test_kernels_are_bitwise_repeatable(cuda):
         assert all(torch.equal(grad, composite_tiles_backward(bins, g, first, partials, 640, 480,
                                                               7, chunk_entries))
                    for _ in range(3))
+
+
+def assert_within_forward_limits(got, want, k):
+    """The smoke's forward_vs_plain limits: every channel > 60 dB and max
+    |diff| <= 1e-3 x max(1, the channel's peak)."""
+    ref, out = outputs_from_channels(want, (0, 0, 0), k), outputs_from_channels(got, (0, 0, 0), k)
+    db = channel_psnr(ref, out)
+    assert min(db.values()) > 60, db
+    for name in ref._fields:
+        a, b = getattr(ref, name), getattr(out, name)
+        assert float((a - b).abs().max()) <= 1e-3 * max(1.0, float(a.abs().max())), name
+
+
+@pytest.mark.parametrize("width,height", [(640, 480), (70, 50)])
+def test_chunk_launch_equals_frame_launches(cuda, width, height):
+    """One launch over three views (the last with another field of view)
+    against one launch per view, bitwise; a ragged frame writes nothing
+    into the next."""
+    cams = [camera("orbit", cuda, width, height), camera("grazing", cuda, width, height),
+            Camera.look_at(eye=(0.2, 0.9, 0.5), target=(0, 0, 0.05), up=(0, 0, 1),
+                           fovx=np.deg2rad(45), fovy=np.deg2rad(35), width=width, height=height,
+                           device=cuda)]
+    s = scene(cuda)
+    bins = bin_splats(project_gaussians(s, CameraBatch.stack(cams)), width, height)
+    before = composite_tiles.launches
+    chunk = composite_tiles(bins, width, height, 7)
+    assert composite_tiles.launches == before + 1
+    assert chunk.shape == (3, height, width, 5 + 3 * 7 + 2)
+    for f, cam in enumerate(cams):
+        one = composite_tiles(bin_splats(project_gaussians(s, cam), width, height), width, height, 7)
+        assert torch.equal(chunk[f], one), f
+    assert_within_forward_limits(chunk, composite_tiles_torch(bins, width, height, 7), 7)
+
+
+def test_chunk_of_stress_tiles_matches_plain(cuda):
+    """The long-segment pile-up in three frames (another seed each): one
+    launch bitwise equal to three, within the forward limits of the plain
+    version on the chunk, bitwise repeatable; the backward takes one frame."""
+    c, w, h = CHUNK_ENTRIES, 128, 64
+    piles = [make_tile_pileup(np.random.default_rng(5 + f),
+                              {0: 10 * c + 37, 1: c - 1, 2: c, 3: c + 1, 12: 40}, w, h, 7, device=cuda)
+             for f in range(3)]
+    stacked = ProjectedGaussians(*(torch.stack([getattr(p, name) for p in piles])
+                                   for name in ProjectedGaussians._fields))
+    bins = bin_splats(stacked, w, h)
+    out, partials = composite_tiles(bins, w, h, 7, return_partials=True)
+    assert torch.equal(out, composite_tiles(bins, w, h, 7))
+    for f in range(3):
+        one = bin_splats(ProjectedGaussians(*(x[f] for x in stacked)), w, h)
+        assert one.tile_count[:4].tolist() == [10 * c + 37, c - 1, c, c + 1]
+        assert torch.equal(out[f], composite_tiles(one, w, h, 7)), f
+    assert_within_forward_limits(out, composite_tiles_torch(bins, w, h, 7), 7)
+    with pytest.raises(ValueError, match="one frame"):
+        composite_tiles_backward(bins, torch.ones_like(out[0]), out[0], partials, w, h, 7)

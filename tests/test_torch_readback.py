@@ -31,7 +31,7 @@ from test_torch_pegasus import MODALITIES, _assets, _config, recorded  # noqa: F
 torch.set_num_threads(1)
 
 H, W, K = 40, 48, 3
-CHUNK = 2  # frames per chunk in the packing tests; PEGASUS ships C = 1
+CHUNK = 2  # frames per chunk in the packing tests; PEGASUS packs min(frame_chunk, frames)
 
 
 def numpy_frames(seed=0):
@@ -158,9 +158,10 @@ def test_pegasus_compact_readback_writes_the_same_tree(recorded, tmp_path, mode)
     for f in files:
         assert (a / f).read_bytes() == (b / f).read_bytes(), f
     assert stats["compact"]["rle_fallback_frames"] == 0 and "rle_fallback_frames" not in stats["packed"]
-    # 80x60, two objects: 6 B/px packed against 8 + 5 x 1024 + 4 B/px
+    # 80x60, two objects, the 4 frames one chunk (frame_chunk=8): 6 B/px
+    # packed against one buffer of 8 + 5 x 1024 + 4 B/px
     assert stats["packed"]["readback_bytes"] == 4 * 60 * 80 * 6
-    assert stats["compact"]["readback_bytes"] == 4 * (8 + 5 * 1024 + 60 * 80 * 4)
+    assert stats["compact"]["readback_bytes"] == 8 + 5 * 1024 + 4 * 60 * 80 * 4
 
 
 def test_pegasus_compact_readback_fetches_the_fallback_on_overflow(recorded, tmp_path, monkeypatch):  # noqa: F811
@@ -183,7 +184,8 @@ def test_pegasus_compact_readback_fetches_the_fallback_on_overflow(recorded, tmp
         peg.save2bop()
         trees[name] = (tmp_path / name, peg.last_render_stats)
     assert trees["roomy"][1]["rle_fallback_frames"] == 0 and trees["tight"][1]["rle_fallback_frames"] == 4
-    assert trees["tight"][1]["readback_bytes"] == 4 * (8 + 5 * 4 + 60 * 80 * 4 + 60 * 80 * 2)
+    # one chunk of the 4 frames: one buffer, then its raw sparse planes
+    assert trees["tight"][1]["readback_bytes"] == 8 + 5 * 4 + 4 * (60 * 80 * 4 + 60 * 80 * 2)
     a, b = trees["roomy"][0], trees["tight"][0]
     for f in sorted(p.relative_to(a) for p in a.rglob("*.png")):
         assert (a / f).read_bytes() == (b / f).read_bytes(), f
