@@ -96,10 +96,13 @@ Phases, each of which fails the run (nonzero exit) on any miss:
    seconds and shares and frames/s;
 11. scene variants: ``generate_scene_variants`` with V = 64 at 640x480 on a
    210k-splat template (150k plane + 6 flat boxes of 10k), drops of 600
-   steps: one forward-kernel launch per variant, finite outputs, the gates
+   steps: one forward-kernel launch and one ``bin_splats`` host read per
+   chunk of ``VARIANT_CHUNK`` = 8 variants (8), the outputs at
+   ``VARIANT_CHUNK`` 8 and 1 (in turns 8, 1, 1, 8) bitwise equal, finite outputs, the gates
    of phase 9 on the recorded drops, except that 95 % of the 384 boxes (not
    every one) must lie still at the last step: six boxes dropped onto one
-   spot pile up, and a pile sheds a box now and then.  Prints variants/s.
+   spot pile up, and a pile sheds a box now and then.  Prints variants/s
+   at each turn.
 
 12. the splat-sharded render: ``rasterize_splat_sharded`` (backend "cuda")
    of the 1M plane scene at the orbit and the grazing camera, K = 7, on
@@ -113,11 +116,15 @@ Phases, each of which fails the run (nonzero exit) on any miss:
 13. sharded generation: ``run_generation(mesh=)`` on a 4-lane mesh over the
    smoke dataset, 8 static scenes of 10 x 4 frames, then (resuming) 4
    dynamic scenes of 2 x 4: one ``simulate_batch`` per batch of 4 scenes (3
-   calls), one forward-kernel launch per written frame (352),
-   ``check_bop_tree`` and ``check_bop_dataset``, 12 stats records, a further
-   call renders and drops nothing, the dynamic scenes' poses move between
-   frames.  Prints seconds per scene and per batch stage, and scenes/s of 4
-   static scenes at 1, 2 and 4 lanes;
+   calls), one forward-kernel launch per chunk of 8 frames (44 for 352
+   frames), ``check_bop_tree`` and ``check_bop_dataset``, 12 stats records,
+   a further call renders and drops nothing, the dynamic scenes' poses move
+   between frames.  Prints seconds per scene and per batch stage, and
+   scenes/s of 4 static scenes at 1, 2 and 4 lanes.  Then 2 static scenes of
+   10 x 4 frames and 2 dynamic of 2 x 4 on the 4 lanes at ``frame_chunk`` 1,
+   8, 8, 1 in turns: every turn's tree byte-identical to the first (all
+   files but the stats and the config), one launch and one host read per
+   chunk; prints per turn launches and host reads per frame and scenes/s;
 14. the data-parallel train step at the training shape (150k-splat box,
    512x512, 40,000 seed points, capacity 200,000): 4 cameras on a 4-lane
    mesh against one ``_apply_grads`` of the mean of four single-view
@@ -128,7 +135,8 @@ Phases, each of which fails the run (nonzero exit) on any miss:
 15. the full-roster dress rehearsal: nine environments (40,000 splats) and
    all 51 roster objects (4,000 splats) as synthetic assets, 16 static and
    4 dynamic scenes of 2 x 3 frames with 3-6 objects through
-   ``run_generation(mesh=)`` on 4 lanes, the three camera modes in turn;
+   ``run_generation(mesh=)`` on 4 lanes, the three camera modes in turn,
+   one forward-kernel launch per scene (its 6 frames are one chunk);
    51 ``models_info`` entries, gt-info, NDDS, ``write_targets_bop19``,
    ``check_bop_dataset`` clean, and ``score_bop19`` with the written poses
    as estimates AR >= 0.99 (mssd and mspd exactly 1).  Prints the seconds of
@@ -557,12 +565,15 @@ def run_scene(data: Path, out: Path, name: str, mode: str, num_cameras: int,
     return peg, n_frames, host
 
 
-def same_trees(a: Path, b: Path) -> list:
+def same_trees(a: Path, b: Path, skip: tuple = ()) -> list:
     """Files of scene tree ``a`` that differ from ``b`` byte for byte (or
-    are missing from it); fails if ``b`` holds other files."""
-    files = sorted(p.relative_to(a) for p in a.rglob("*") if p.is_file())
-    require(files and files == sorted(p.relative_to(b) for p in b.rglob("*") if p.is_file()),
-            f"{a.name} and {b.name} hold other files")
+    are missing from it), files named in ``skip`` left out; fails if ``b``
+    holds other files."""
+    def files_of(root):
+        return sorted(p.relative_to(root) for p in root.rglob("*") if p.is_file() and p.name not in skip)
+
+    files = files_of(a)
+    require(files and files == files_of(b), f"{a.name} and {b.name} hold other files")
     return [str(f) for f in files if (a / f).read_bytes() != (b / f).read_bytes()]
 
 
@@ -1380,6 +1391,8 @@ def scene_variants(device, card: str) -> int:
     import torch
 
     from pegasus_tpu_torch.ops import rasterize_cuda
+    from pegasus_tpu_torch.ops.binning import bin_splats
+    from pegasus_tpu_torch.parallel import scene_batch
     from pegasus_tpu_torch.parallel.scene_batch import generate_scene_variants
     from pegasus_tpu_torch.physics import rigid_body as rb
     from pegasus_tpu_torch.scene.composition import SceneTemplate
@@ -1422,10 +1435,26 @@ def scene_variants(device, card: str) -> int:
         return res, time.perf_counter() - t0
 
     run(0)  # captures the V-wide step
-    rasterize_cuda.composite_tiles.launches = 0
+    chunk = scene_batch.VARIANT_CHUNK
+    rasterize_cuda.composite_tiles.launches = bin_splats.host_reads = 0
     res, seconds = run(1)
     launches = rasterize_cuda.composite_tiles.launches
-    require(launches == SCENE_VARIANTS, f"{launches} launches for {SCENE_VARIANTS} variants")
+    chunks = -(-SCENE_VARIANTS // chunk)
+    require(launches == bin_splats.host_reads == chunks,
+            f"{launches} launches, {bin_splats.host_reads} host reads for {SCENE_VARIANTS} variants "
+            f"in {chunks} chunks of {chunk}")
+    # the same drops at VARIANT_CHUNK 1 and then 8 again, in turns: bitwise equal, variants/s each
+    rates = {chunk: [SCENE_VARIANTS / seconds]}
+    try:
+        for c in (1, 1, chunk):
+            scene_batch.VARIANT_CHUNK = c
+            other, wall = run(1)
+            rates.setdefault(c, []).append(SCENE_VARIANTS / wall)
+            unequal = [name for name, x, y in zip(res._fields, res, other) if not torch.equal(x, y)]
+            require(not unequal, f"VARIANT_CHUNK {c} against {chunk}: {unequal} differ")
+            del other
+    finally:
+        scene_batch.VARIANT_CHUNK = chunk
     require(res.rgb.shape == (SCENE_VARIANTS, HEIGHT, WIDTH, 3)
             and res.seg_weights.shape == (SCENE_VARIANTS, HEIGHT, WIDTH, k), res.rgb.shape)
     require(all(bool(torch.isfinite(x).all()) for x in res), "non-finite variant output")
@@ -1444,7 +1473,10 @@ def scene_variants(device, card: str) -> int:
                                    rest_share=VARIANT_REST_SHARE)
     print(f"generate_scene_variants: V = {SCENE_VARIANTS}, {VARIANT_STEPS} steps, {WIDTH}x{HEIGHT}, "
           f"{template.cloud.num_splats} splats, K = {k}: {seconds:.3f} s ({SCENE_VARIANTS / seconds:.3f} "
-          f"variants/s), {launches} forward-kernel launches; lowest z {low:.4f}, last |linvel| "
+          f"variants/s), {launches} forward-kernel launches ({launches / SCENE_VARIANTS:.4f} and "
+          f"{chunks / SCENE_VARIANTS:.4f} host reads per variant); variants/s by VARIANT_CHUNK in turns "
+          f"{chunk}, 1, 1, {chunk} (drop included, outputs bitwise equal): "
+          f"{json.dumps({c: [round(r, 3) for r in v] for c, v in rates.items()})}; lowest z {low:.4f}, last |linvel| "
           f"{speed:.4f}, {share:.4f} of {SCENE_VARIANTS * (b - 1)} objects at rest card={card}", flush=True)
     rb.clear_step_programs()
     return launches
@@ -1591,14 +1623,14 @@ def sharded_generation_phase(data: Path, out: Path, device, card: str) -> int:
 
     env, objs = smoke_assets(data)
 
-    def config(name, mode, num_scenes, num_cameras, seed):
+    def config(name, mode, num_scenes, num_cameras, seed, frame_chunk=8, base=out):
         return GenerationConfig(
             dataset_path=str(data), env_dataset_path=str(data), urdf_asset_folder=str(data / "urdf"),
-            dataset_base_path=str(out), dataset_name=name, num_scenes=num_scenes,
+            dataset_base_path=str(base), dataset_name=name, num_scenes=num_scenes,
             min_num_objects=3, max_num_objects=6, mode=mode, render_width=WIDTH,
             render_height=HEIGHT, num_cameras=num_cameras, num_camera_interpolation_steps=4,
             camera_trajectory_mode="random", render_data_points=list(MODALITIES),
-            simulation_steps=SIM_STEPS, save_video=False, seed=seed,
+            simulation_steps=SIM_STEPS, save_video=False, seed=seed, frame_chunk=frame_chunk,
         )
 
     drops = []  # scenes of each simulate_batch call
@@ -1624,7 +1656,9 @@ def sharded_generation_phase(data: Path, out: Path, device, card: str) -> int:
         records = static.records + dynamic.records
         require([r["scene_id"] for r in records] == list(range(1, 13)), records)
         require(drops == [4, 4, 4], f"simulate_batch calls (scenes each): {drops}, want one per batch")
-        require(launches == 8 * 40 + 4 * 8, f"{launches} launches for {8 * 40 + 4 * 8} frames written")
+        # one launch per chunk of 8: 8 static scenes of 40 frames, 4 dynamic of 8
+        require(launches == 8 * 5 + 4 * 1, f"{launches} launches for {8 * 40 + 4 * 8} frames written "
+                f"in {8 * 5 + 4 * 1} chunks of 8")
         again = run_generation(config(name, "dynamic", 12, 2, 6), [env], objs, mesh=lanes4)
         require(not again.records and rasterize_cuda.composite_tiles.launches == launches
                 and len(drops) == 3, "a resumed sharded run rendered or dropped again")
@@ -1663,10 +1697,48 @@ def sharded_generation_phase(data: Path, out: Path, device, card: str) -> int:
                                for k in ("setup", "physics", "render")}}
         print(f"sharded generation lanes (4 static scenes of 40 frames, {SIM_STEPS} steps, PNG writes "
               f"included): {json.dumps(rates)} card={card}", flush=True)
+        sharded_chunk_identity(config, env, objs, pmesh.make_mesh(devices=[device] * 4), out, card)
     finally:
         rb.simulate_batch = simulate_batch
     rb.clear_step_programs()
     return launches
+
+
+def sharded_chunk_identity(config, env, objs, mesh, out: Path, card: str) -> None:
+    """Phase 13's chunk gate: 2 static scenes of 10 x 4 frames, then
+    (resuming) 2 dynamic scenes of 2 x 4, on ``mesh`` at ``frame_chunk`` 1,
+    8, 8, 1 in turns.  Every turn writes the tree of the first (all files
+    but the stats and the config), launches the forward kernel and reads
+    the host once per chunk; prints per turn launches and host reads per
+    frame and scenes/s."""
+    from pegasus_tpu_torch.generate import run_generation
+    from pegasus_tpu_torch.ops import rasterize_cuda
+    from pegasus_tpu_torch.ops.binning import bin_splats
+
+    frames = 2 * 40 + 2 * 8
+    turns = []
+    for turn, c in enumerate(MAIN_PATH_CHUNKS):
+        base = out / f"chunk_turn{turn}"
+        rasterize_cuda.composite_tiles.launches = bin_splats.host_reads = 0
+        t0 = time.perf_counter()
+        static = run_generation(config("chunked", "static", 2, 10, 21, c, base), [env], objs, mesh=mesh)
+        dynamic = run_generation(config("chunked", "dynamic", 4, 2, 22, c, base), [env], objs, mesh=mesh)
+        wall = time.perf_counter() - t0
+        launches, reads = rasterize_cuda.composite_tiles.launches, bin_splats.host_reads
+        chunks = 2 * -(-40 // c) + 2 * -(-8 // c)
+        require(len(static.records) == len(dynamic.records) == 2, "the chunk runs wrote other scenes")
+        require(launches == reads == chunks,
+                f"frame_chunk {c}: {launches} launches, {reads} host reads for {chunks} chunks")
+        differ = same_trees(out / "chunk_turn0", base,
+                            skip=("generation_stats.jsonl", "generation_config.json"))
+        require(not differ, f"frame_chunk {c} against {MAIN_PATH_CHUNKS[0]}: {len(differ)} files "
+                            f"differ, {differ[:5]}")
+        turns.append({"frame_chunk": c, "scenes_per_s": round(4 / wall, 4), "wall_s": round(wall, 3),
+                      "launches_per_frame": round(launches / frames, 4),
+                      "host_reads_per_frame": round(reads / frames, 4), "files_differing": len(differ)})
+    print(f"sharded generation chunk turns (2 static scenes of 40 frames, 2 dynamic of 8, 4 lanes, "
+          f"{SIM_STEPS} steps, PNG writes included; trees against the first turn): "
+          f"{json.dumps(turns)} card={card}", flush=True)
 
 
 def dp_step_phase(device, card: str) -> dict:
@@ -1831,7 +1903,8 @@ def dress_rehearsal_phase(tmp: Path, device, card: str) -> int:
     t_generate = time.perf_counter() - t0
     launches = rasterize_cuda.composite_tiles.launches
     require([r["scene_id"] for r in records] == list(range(1, 21)), [r["scene_id"] for r in records])
-    require(launches == 20 * 6, f"{launches} launches for {20 * 6} frames")
+    # each scene's 6 frames are one chunk at the default frame_chunk of 8
+    require(launches == 20, f"{launches} launches for 20 scenes of 6 frames, one chunk each")
     require({r["mode"] for r in records} == {"static", "dynamic"}
             and {r["camera_mode"] for r in records} == {"sequence", "random", "random+zoom"},
             "a scene mode or a camera mode was not used")

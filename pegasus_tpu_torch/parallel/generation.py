@@ -6,11 +6,15 @@ set up on the host, dropped as ONE batched physics program per device
 (``rigid_body.simulate_batch`` over that device's scenes: params, start
 states and heightfields stacked on a leading scene axis), and then every
 scene renders its camera trajectory on its own lane (a device and a CUDA
-stream of its own, ``parallel/mesh.py``).  Each lane copies its scene's
-packed frames into one pinned host buffer on its stream and hands the
-two-worker writer pool an event to wait on; the pool unpacks the frames and
-writes the same BOP tree as the sequential path while the next batch is set
-up and dropped.
+stream of its own, ``parallel/mesh.py``) in chunks of ``config.frame_chunk``
+frames, as the sequential path does: one pose per chunk (per scene if
+static), one projection, one binning host read and one compositor launch
+(``ops/render.py::render_chunk``).  The reference's batch program renders
+a scene's F frames as one program and reads no ``frame_chunk``; here the
+files do not depend on it.  Each lane copies its scene's packed chunks into
+one pinned host buffer on its stream and hands the two-worker writer pool
+an event to wait on; the pool unpacks the frames and writes the same BOP
+tree as the sequential path while the next batch is set up and dropped.
 
 Order inside a batch: the drop of the whole batch has finished on the host
 (its trajectory is copied back for the trajectory JSON) before any lane
@@ -42,13 +46,15 @@ import numpy as np
 import torch
 
 from pegasus_tpu_torch.assets.registry import Asset
+from pegasus_tpu_torch.camera import CameraBatch
 from pegasus_tpu_torch.config import GenerationConfig
 from pegasus_tpu_torch.gs.ply import load_gs_ply
 from pegasus_tpu_torch.io import colmap as colmap_io
 from pegasus_tpu_torch.io.bop_writer import BOPDatasetWriter, write_models
 from pegasus_tpu_torch.io.mesh import load_mesh
+from pegasus_tpu_torch.ops.rasterize_cuda import refuse_rasterize_fn
 from pegasus_tpu_torch.ops.render import (encode_frame, pack_frame_bytes,
-                                          render_frame, unpack_frame_bytes)
+                                          render_chunk, unpack_frame_bytes)
 from pegasus_tpu_torch.parallel.mesh import Mesh, make_mesh, map_lanes
 from pegasus_tpu_torch.physics import rigid_body as rb
 from pegasus_tpu_torch.physics.engine import PhysicsEngine
@@ -185,18 +191,23 @@ def _drop_batch(setups, n_steps: int, device):
     return out
 
 
-def _render_scene(lane, setup, frame_steps, static_pose: bool, background):
-    """One scene's frame loop on its lane: pose (once for a static scene,
-    per frame for a dynamic one), ``render_frame`` -> ``encode_frame`` ->
-    ``pack_frame_bytes``, each frame copied into one pinned host buffer on
-    the lane's stream.  Returns (packed [F, H, W, C] uint8 on the host,
-    body_R [F, B, 3, 3], body_t [F, B, 3], event that completes with the
-    copies or None on the CPU)."""
+def _render_scene(lane, setup, frame_steps, static_pose: bool, background, frame_chunk: int):
+    """One scene's frames on its lane, in chunks of ``frame_chunk`` frames
+    (the tail chunk just shorter): per chunk one pose of the scene (once
+    per scene for a static one, pose by pose for a dynamic chunk), one
+    ``render_chunk`` -> ``encode_frame`` -> ``pack_frame_bytes`` over a
+    slice of the scene's ``CameraBatch``, and one copy of the packed chunk
+    into the scene's pinned host buffer on the lane's stream.  Every frame
+    has the bits it has in a chunk of one.  Returns (packed [F, H, W, C]
+    uint8 on the host, body_R [F, B, 3, 3], body_t [F, B, 3], event that
+    completes with the copies or None on the CPU)."""
     dev = lane.device
-    template, cams = setup["template"], setup["cams"]
+    template = setup["template"]
     times_t, times_q = setup["times_t"], setup["times_q"]
     colors = torch.tensor(setup["colors"], dtype=torch.float32, device=dev)
-    n_frames = len(cams)
+    n_frames = len(setup["cams"])
+    chunk = max(1, min(frame_chunk, n_frames))
+    cams = CameraBatch.stack(setup["cams"])
     on_card = dev.type == "cuda"
 
     def host_buffer(shape, dtype):
@@ -209,21 +220,25 @@ def _render_scene(lane, setup, frame_steps, static_pose: bool, background):
                 times_t, times_q, int(frame_steps[0]), device=dev
             )
             scene = pose_scene(template, body_R, body_t)
-        for i, cam in enumerate(cams):
-            if not static_pose:
-                body_R, body_t = poses_from_trajectory_step(
-                    times_t, times_q, int(frame_steps[i]), device=dev
+        for lo in range(0, n_frames, chunk):
+            hi = min(lo + chunk, n_frames)
+            if static_pose:
+                chunk_R = body_R.expand(hi - lo, *body_R.shape)
+                chunk_t = body_t.expand(hi - lo, *body_t.shape)
+            else:
+                chunk_R, chunk_t = poses_from_trajectory_step(
+                    times_t, times_q, frame_steps[lo:hi], device=dev
                 )
-                scene = pose_scene(template, body_R, body_t)
-            frame = render_frame(scene, cam, colors, background=background)
-            packed = pack_frame_bytes(encode_frame(frame))
+                scene = pose_scene(template, chunk_R, chunk_t)
+            frames = render_chunk(scene, cams[lo:hi], colors, background=background)
+            packed = pack_frame_bytes(encode_frame(frames))
             if packed_h is None:
-                packed_h = host_buffer(packed.shape, packed.dtype)
-                body_R_h = host_buffer(body_R.shape, body_R.dtype)
-                body_t_h = host_buffer(body_t.shape, body_t.dtype)
-            packed_h[i].copy_(packed, non_blocking=True)
-            body_R_h[i].copy_(body_R, non_blocking=True)
-            body_t_h[i].copy_(body_t, non_blocking=True)
+                packed_h = host_buffer(packed.shape[1:], packed.dtype)
+                body_R_h = host_buffer(chunk_R.shape[1:], chunk_R.dtype)
+                body_t_h = host_buffer(chunk_t.shape[1:], chunk_t.dtype)
+            packed_h[lo:hi].copy_(packed, non_blocking=True)
+            body_R_h[lo:hi].copy_(chunk_R, non_blocking=True)
+            body_t_h[lo:hi].copy_(chunk_t, non_blocking=True)
     event = None
     if on_card:
         event = torch.cuda.Event()
@@ -236,9 +251,15 @@ def run_generation_sharded(
     env_list: List[Asset],
     obj_list: List[Asset],
     mesh: Mesh = None,
+    rasterize_fn=None,
 ) -> SceneStats:
     """Generate ``config.num_scenes`` scenes in mesh-sized batches.
-    ``mesh=None`` is a 1-D 'scene' mesh with one lane per visible card."""
+    ``mesh=None`` is a 1-D 'scene' mesh with one lane per visible card.
+    Each lane renders its scene in chunks of ``config.frame_chunk`` frames.
+    ``rasterize_fn`` is the reference's keyword: the port renders with
+    ``rasterize_chunk`` (the forward kernel on the card) and accepts None
+    only."""
+    refuse_rasterize_fn(rasterize_fn)
     if mesh is None:
         mesh = make_mesh(axis_names=("scene",))
     lanes = mesh.lanes()
@@ -318,7 +339,8 @@ def run_generation_sharded(
         rendered = map_lanes(
             batch_lanes,
             lambda lane, setup: _render_scene(
-                lane, setup, frame_steps, static_pose, config.background
+                lane, setup, frame_steps, static_pose, config.background,
+                config.frame_chunk,
             ),
             setups,
         )

@@ -167,7 +167,9 @@ def lane_slices(n: int, n_lanes: int) -> list:
 def split_batch(tree, mesh: Mesh, axis_name: str = "scene") -> list:
     """Cut a tree whose tensors share a leading batch axis into one
     contiguous slice per lane of ``axis_name`` (a 1-D mesh), each moved to
-    its lane's device.  Returns the list of per-lane trees, in lane order."""
+    its lane's device.  Returns the list of per-lane trees, in lane order.
+    The counterpart of the reference's ``shard_batch``, which places the
+    tree as one array sharded over the axis; a lane here holds its slice."""
     if mesh.axis_names != (axis_name,):
         raise ValueError(f"split_batch wants a 1-D {axis_name!r} mesh, got {mesh.axis_names}")
     lanes = mesh.lanes()

@@ -2,14 +2,18 @@
 
 Port of ``pegasus_tpu/parallel/scene_batch.py``: V randomized drops of one
 scene are simulated to rest as ONE batched physics program
-(``rigid_body.simulate_batch`` over the variant axis), then each variant is
-posed and rendered once by the port's ``rasterize`` (one launch of the tile
-compositor kernel per variant: the reference's ``lax.map`` is a Python loop
-here).  With ``mesh=`` (a 1-D 'scene' mesh, ``parallel/mesh.py``) the variant
-axis is cut into one contiguous slice per lane: the physics stays one
-``simulate_batch`` per device of the mesh, over the variants of that
-device's lanes, each lane poses and renders its slice, and the outputs are
-gathered on the first lane's device in variant order.
+(``rigid_body.simulate_batch`` over the variant axis), then the variants are
+posed and rendered in chunks of ``VARIANT_CHUNK``: a chunk is the template
+posed once per variant (pose by pose) under one camera stacked as many
+times, rendered by one ``rasterize_chunk`` (one projection, one binning host
+read and one launch of the tile compositor kernel).  The reference maps its
+variants one by one (``lax.map``); every variant here has the bits that
+``rasterize`` of it alone gives, whatever the chunk.  With ``mesh=`` (a
+1-D 'scene' mesh, ``parallel/mesh.py``) the variant axis is cut into one
+contiguous slice per lane: the physics stays one ``simulate_batch`` per
+device of the mesh, over the variants of that device's lanes, each lane
+poses and renders its slice in chunks, and the outputs are gathered on the
+first lane's device in variant order, one copy per chunk.
 
 The start states come from an explicit ``torch.Generator`` on the CPU, so a
 seed means the same drops on any device.
@@ -21,9 +25,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from pegasus_tpu_torch.camera import Camera
+from pegasus_tpu_torch.camera import Camera, CameraBatch
 from pegasus_tpu_torch.device import DEFAULT_DEVICE, resolve_device
-from pegasus_tpu_torch.ops.rasterize_cuda import rasterize
+from pegasus_tpu_torch.ops.rasterize_cuda import rasterize_chunk, refuse_rasterize_fn
 from pegasus_tpu_torch.parallel.mesh import Lane, Mesh, lane_slices, map_lanes, to_device
 from pegasus_tpu_torch.physics import rigid_body as rb
 from pegasus_tpu_torch.physics.heightfield import Heightfield
@@ -42,6 +46,7 @@ class SceneBatchResult(NamedTuple):
 
 
 RENDER_FIELDS = SceneBatchResult._fields[:5]  # what each variant's render gives
+VARIANT_CHUNK = 8  # variants per set of launches: the reference's frame_chunk default
 
 
 def variant_start_states(
@@ -81,11 +86,13 @@ def generate_scene_variants(
     drop_height=(0.25, 0.45),
     drop_region=(0.15, 0.15),
     seed: int = 0,
+    mesh: Optional[Mesh] = None,
     max_objects: int = 8,
+    rasterize_fn=None,
+    rasterize_kwargs: Optional[dict] = None,
     generator: Optional[torch.Generator] = None,
     heightfield: Optional[Heightfield] = None,
     device=DEFAULT_DEVICE,
-    mesh: Optional[Mesh] = None,
 ) -> SceneBatchResult:
     """Randomize drops, simulate to rest, render: V variants.
 
@@ -93,8 +100,17 @@ def generate_scene_variants(
     ``template`` describe one scene; the drops are drawn from ``generator``
     (default: a CPU generator seeded with ``seed``).  Returns every output
     stacked over the variant axis, on ``device`` or, with ``mesh``, on the
-    mesh's first device (``device`` is not read then).
+    mesh's first device (``device`` is not read then).  ``rasterize_fn``
+    and ``rasterize_kwargs`` are the reference's keywords: the port renders
+    with ``rasterize_chunk`` (the forward kernel on the card) and accepts
+    None (and no keywords) only.
     """
+    refuse_rasterize_fn(rasterize_fn)
+    if rasterize_kwargs:
+        raise ValueError(
+            f"rasterize_kwargs {sorted(rasterize_kwargs)}: this package renders with "
+            "ops.rasterize_cuda.rasterize_chunk and takes no keywords for it; pass None"
+        )
     lanes = mesh.lanes() if mesh is not None else [Lane(resolve_device(device))]
     home = lanes[0].device
     if generator is None:
@@ -133,18 +149,22 @@ def generate_scene_variants(
         body_R[:, 0] = torch.eye(3, dtype=torch.float32, device=lane.device)
         body_t = pos.clone()
         body_t[:, 0] = 0.0
+        n = pos.shape[0]
+        chunk = max(1, min(VARIANT_CHUNK, n))
+        cams = CameraBatch.stack([camera] * chunk)
         outs = []
         with torch.no_grad():
-            for v in range(pos.shape[0]):
-                scene = pose_scene(tmpl, body_R[v, :n_bodies], body_t[v, :n_bodies])
-                out = rasterize(scene, camera, max_objects=max_objects)
+            for lo in range(0, n, chunk):
+                hi = min(lo + chunk, n)
+                scene = pose_scene(tmpl, body_R[lo:hi, :n_bodies], body_t[lo:hi, :n_bodies])
+                out = rasterize_chunk(scene, cams[: hi - lo], max_objects=max_objects)
                 outs.append(tuple(getattr(out, name).to(home) for name in RENDER_FIELDS))
         return outs
 
     busy = [i for i, f in enumerate(finals) if f is not None]
     rendered = map_lanes([lanes[i] for i in busy], render_slice, [finals[i] for i in busy])
     outs = [o for lane_outs in rendered for o in lane_outs]
-    stacked = {name: torch.stack([o[j] for o in outs], dim=0)
+    stacked = {name: torch.cat([o[j] for o in outs], dim=0)
                for j, name in enumerate(RENDER_FIELDS)}
     return SceneBatchResult(
         **stacked,

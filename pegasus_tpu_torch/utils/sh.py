@@ -169,3 +169,9 @@ def rotate_sh_rest(f_rest: torch.Tensor, R: torch.Tensor, deg: int = 3) -> torch
     if start < f_rest.shape[1]:
         outs.append(f_rest[:, start:, :])
     return torch.cat(outs, dim=1)
+
+
+# Inria-submodule spelling (utils/sh_utils.py RGB2SH/SH2RGB), imported by
+# reference-era code
+RGB2SH = rgb2sh
+SH2RGB = sh2rgb

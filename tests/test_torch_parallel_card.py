@@ -146,7 +146,8 @@ def test_dp_step_on_lanes_of_the_card(cuda):
 
 def test_sharded_generation_on_lanes_of_the_card(cuda, tmp_path):
     """Six scenes on 4 lanes (a full batch and a short one), 128x96, a drop
-    of 60 replayed steps: one launch per written frame, the dataset check
+    of 60 replayed steps: one launch per scene (its 3 frames are one chunk
+    at the default ``frame_chunk``), the dataset check
     passes on what the writers got from the lanes, and a second call resumes."""
     build_synthetic_dataset(tmp_path / "data", env_splats=20_000, obj_splats=3_000)
     data = tmp_path / "data"
@@ -162,7 +163,7 @@ def test_sharded_generation_on_lanes_of_the_card(cuda, tmp_path):
         save_video=False, seed=4)
     before = rasterize_cuda.composite_tiles.launches
     stats = run_generation(config, [env], objs, mesh=make_mesh(devices=[cuda] * 4))
-    assert rasterize_cuda.composite_tiles.launches == before + 6 * 3
+    assert rasterize_cuda.composite_tiles.launches == before + 6 * 1
     assert [b["scene_ids"] for b in stats.batches] == [[1, 2, 3, 4], [5, 6]]
     finalize_dataset(config)
     report = check_bop_dataset(tmp_path / "out", "card")
