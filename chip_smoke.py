@@ -3,6 +3,8 @@
     python3 chip_smoke.py [--profile] [--from-phase N]
 
 Needs one CUDA device, ``nvcc`` and ``nvidia-smi``; imports nothing of JAX.
+First it imports ``pegasus_tpu_torch`` and every subpackage and prints that
+``torch.cuda.is_initialized()`` stayed False (it fails otherwise).
 Phases, each of which fails the run (nonzero exit) on any miss:
 
 1. print the card (``nvidia-smi`` name and power limit), torch and CUDA;
@@ -67,7 +69,10 @@ Phases, each of which fails the run (nonzero exit) on any miss:
    iterations, so densification fires at 500 and 600.  Both kernels must
    launch once per iteration, the loss must fall, the alive count must
    exceed the seed count, both PLYs must load back and the PSNR over four
-   training views must beat the seed cloud's.  Prints ms/step of whole
+   training views must beat the seed cloud's.  A trainer built through
+   the reference's positional form ``GSTrainer(config, None, W, H)``
+   must take one ``train_step`` bitwise equal to the keyword form's from
+   the same state.  Prints ms/step of whole
    ``train_step`` calls and peak device memory, and a ``torch.profiler``
    trace of 20 steps (device busy share, launches per step, each kernel's
    share of device time, and the device time of each stage of
@@ -1047,6 +1052,42 @@ def stage_split(prof, prefix: str):
     return split, unassigned
 
 
+def train_state_differences(a, b) -> list:
+    """The fields of two ``TrainState``s that are not bitwise equal."""
+    import dataclasses
+
+    import torch
+
+    differ = [f"cloud.{f.name}" for f in dataclasses.fields(a.cloud)
+              if not torch.equal(getattr(a.cloud, f.name), getattr(b.cloud, f.name))]
+    for name in ("mu", "nu"):
+        differ += [f"{name}.{g}" for g in getattr(a, name)
+                   if not torch.equal(getattr(a, name)[g], getattr(b, name)[g])]
+    for name in ("xyz_grad_accum", "denom", "max_radii2d"):
+        if not torch.equal(getattr(a, name), getattr(b, name)):
+            differ.append(name)
+    differ += [n for n in ("count", "step", "spatial_lr_scale") if getattr(a, n) != getattr(b, n)]
+    return differ
+
+
+def port_imports_leave_cuda_alone() -> int:
+    """Import ``pegasus_tpu_torch`` and every subpackage; CUDA must stay
+    uninitialised (no kernel built, no library loaded, no context made).
+    Returns the number of packages imported."""
+    import importlib
+    import pkgutil
+
+    import torch
+
+    import pegasus_tpu_torch
+
+    packages = [pegasus_tpu_torch] + [
+        importlib.import_module(m.name)
+        for m in pkgutil.walk_packages(pegasus_tpu_torch.__path__, "pegasus_tpu_torch.") if m.ispkg]
+    require(not torch.cuda.is_initialized(), "importing the port initialised CUDA")
+    return len(packages)
+
+
 def profile_training(trainer, state, cams, gts, card, steps: int = 20):
     """A torch.profiler trace of ``steps`` training steps, with the device
     time of each of ``train_step``'s stages (the backward's among them);
@@ -1159,6 +1200,17 @@ def training_main_path(tmp: Path, device, card: str):
     step_gts = [all_gts[i] for i in order]
     for i in range(5):  # warm-up
         state, _ = trainer.train_step(state, step_cams[i], step_gts[i])
+    # the reference's positional form binds as the keyword form: one step of each, bitwise
+    positional = GSTrainer(config, None, scene["width"], scene["height"], device=device)
+    require((positional.width, positional.height) == (trainer.width, trainer.height),
+            (positional.width, positional.height))
+    by_keyword, _ = trainer.train_step(state, step_cams[5], step_gts[5])
+    by_position, _ = positional.train_step(state, step_cams[5], step_gts[5])
+    differ = train_state_differences(by_keyword, by_position)
+    require(not differ, f"GSTrainer(config, None, W, H) stepped otherwise than the keyword form: {differ}")
+    print(f"GSTrainer(config, None, {scene['width']}, {scene['height']}): one train_step bitwise "
+          f"equal to the keyword form's (every parameter, moment and statistic) card={card}", flush=True)
+    del by_keyword, by_position
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(20):
@@ -2334,6 +2386,9 @@ def main() -> int:
     whole = args.from_phase <= 3
     import torch
 
+    n_packages = port_imports_leave_cuda_alone()
+    print(f"import pegasus_tpu_torch and its {n_packages - 1} subpackages: "
+          f"torch.cuda.is_initialized() {torch.cuda.is_initialized()}", flush=True)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1

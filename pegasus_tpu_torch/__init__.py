@@ -26,3 +26,9 @@ runs no convolution (cuDNN's float32 convolutions default to TF32).
 """
 
 __version__ = "0.1.0"
+
+from pegasus_tpu_torch.gs.cloud import GaussianCloud, merge
+from pegasus_tpu_torch.camera import Camera
+from pegasus_tpu_torch.config import GenerationConfig
+
+__all__ = ["GaussianCloud", "merge", "Camera", "GenerationConfig", "__version__"]

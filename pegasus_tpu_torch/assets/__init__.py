@@ -1,1 +1,3 @@
 """Asset registry (dataset layout and ids)."""
+
+from pegasus_tpu_torch.assets.registry import Asset, AssetRegistry

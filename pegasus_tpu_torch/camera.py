@@ -18,13 +18,14 @@ tensors with a leading camera axis (the reference's ``_stack_cams``), which
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from pegasus_tpu_torch.device import DEFAULT_DEVICE, resolve_device
-from pegasus_tpu_torch.utils.pose import qvec2rotmat
+from pegasus_tpu_torch.utils.pose import focal2fov, fov2focal, qvec2rotmat  # noqa: F401 (re-export)
 
 
 @dataclass(frozen=True)
@@ -37,6 +38,8 @@ class Camera:
     fovy: float
     width: int = 640
     height: int = 480
+    znear: float = 0.01  # clip planes, as the reference carries them; projection
+    zfar: float = 100.0  # reads neither (its near cull is at 0.2)
 
     @classmethod
     def create(cls, R_w2c, t_w2c, fovx, fovy, width, height, device=DEFAULT_DEVICE) -> "Camera":
@@ -72,6 +75,9 @@ class Camera:
         down = np.cross(fwd, right)
         R_w2c = np.stack([right, down, fwd], axis=0)
         return cls.create(R_w2c, -R_w2c @ eye, fovx, fovy, width, height, device)
+
+    def replace(self, **updates) -> "Camera":
+        return dataclasses.replace(self, **updates)
 
     @property
     def device(self) -> torch.device:

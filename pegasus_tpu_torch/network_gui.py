@@ -20,9 +20,9 @@ Module-level API mirrors the reference: ``init``, ``try_connect``,
 is the client side's encoding of a camera (the inverse of
 ``camera_from_message``).  The serving loops drop a connection only on the
 socket and protocol errors of ``PROTOCOL_ERRORS``; an error of the render
-propagates (the reference drops the connection on any exception).  The
-``Camera`` here has no clip planes, so ``z_near`` / ``z_far`` are read by
-nothing.
+propagates (the reference drops the connection on any exception).
+``z_near`` / ``z_far`` fill the ``Camera``'s ``znear`` / ``zfar``, which
+the projection does not read, as in the reference.
 """
 
 from __future__ import annotations
@@ -105,7 +105,7 @@ def camera_from_message(message: dict, device=DEFAULT_DEVICE):
     return Camera.create(
         W2C[:3, :3], W2C[:3, 3], float(message["fov_x"]), float(message["fov_y"]),
         int(message["resolution_x"]), int(message["resolution_y"]), device=device,
-    )
+    ).replace(znear=float(message.get("z_near", 0.01)), zfar=float(message.get("z_far", 100.0)))
 
 
 def request_message(cam=None, train: bool = False, keep_alive: bool = True,
@@ -115,6 +115,7 @@ def request_message(cam=None, train: bool = False, keep_alive: bool = True,
     w = h = 0
     view = np.eye(4, dtype=np.float32)
     fovx = fovy = 1.0
+    znear, zfar = 0.01, 100.0
     if cam is not None:
         W2C = np.eye(4, dtype=np.float32)
         W2C[:3, :3] = cam.R_w2c.cpu().numpy()
@@ -123,9 +124,10 @@ def request_message(cam=None, train: bool = False, keep_alive: bool = True,
         view[:, 1] = -view[:, 1]
         view[:, 2] = -view[:, 2]
         w, h, fovx, fovy = cam.width, cam.height, cam.fovx, cam.fovy
+        znear, zfar = cam.znear, cam.zfar
     msg = {
         "resolution_x": w, "resolution_y": h, "train": train,
-        "fov_x": fovx, "fov_y": fovy, "z_near": 0.01, "z_far": 100.0,
+        "fov_x": fovx, "fov_y": fovy, "z_near": znear, "z_far": zfar,
         "shs_python": False, "rot_scale_python": False, "keep_alive": keep_alive,
         "scaling_modifier": scaling_modifier,
         "view_matrix": [float(v) for v in view.flatten()],

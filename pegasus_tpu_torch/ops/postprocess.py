@@ -42,14 +42,15 @@ def ssao(
     radius_px: int = 8,
     n_samples: int = 16,
     strength: float = 1.0,
+    key=None,
 ) -> torch.Tensor:
     """[H, W] ambient-occlusion factor in [0, 1] (1 = unoccluded).
 
     Horizon-style screen-space AO: sample depth at fixed offsets around
     each pixel; occlusion accumulates where neighbours are closer to the
     camera than the centre by more than a normal-dependent bias
-    (ao_test.py:126-152).  The offsets are fixed, so the JAX package's
-    unused ``key`` has no counterpart."""
+    (ao_test.py:126-152).  The offsets are fixed, so ``key`` is read by
+    nothing, as in the JAX package."""
     if normals is None:
         normals = normals_from_depth(depth)
     angles = torch.linspace(0, 2 * math.pi, n_samples + 1, dtype=torch.float32)[:-1]

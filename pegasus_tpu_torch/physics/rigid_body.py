@@ -909,7 +909,13 @@ def simulate(
     params: RigidBodyParams,
     state0: RigidBodyState,
     n_steps: int = 310,
-    **kwargs,
+    dt: float = DEFAULT_DT,
+    gravity=DEFAULT_GRAVITY,
+    iters: int = 10,
+    heightfield: Optional[Heightfield] = None,
+    baumgarte: float = 0.2,
+    slop: float = 1e-4,
+    device=DEFAULT_DEVICE,
 ) -> Tuple[RigidBodyState, RigidBodyState]:
     """Run one drop, recording every step: ``simulate_batch`` at S = 1.
 
@@ -917,6 +923,7 @@ def simulate(
     state ``[B, ...]``): every body's (t, q) at every timestep, as the
     reference's recording loop stores them.
     """
-    traj, final = simulate_batch(params, _with_scene_axis(state0), n_steps=n_steps, **kwargs)
+    traj, final = simulate_batch(params, _with_scene_axis(state0), n_steps, dt, gravity, iters,
+                                 heightfield, baumgarte, slop, device)
     strip = lambda t: t[0]
     return _map_tensors(traj, strip), _map_tensors(final, strip)

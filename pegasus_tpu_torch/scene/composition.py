@@ -12,6 +12,7 @@ TPU workaround).  ``pose_scene`` also takes C poses at once.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Sequence
 
@@ -52,6 +53,9 @@ class SceneTemplate:
         if pad_to is not None:
             scene = scene.padded(pad_to)
         return cls(cloud=scene, pivots=torch.stack(pivots, dim=0), num_bodies=len(objects) + 1)
+
+    def replace(self, **updates) -> "SceneTemplate":
+        return dataclasses.replace(self, **updates)
 
 
 def pose_scene(

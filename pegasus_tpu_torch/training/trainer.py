@@ -23,9 +23,9 @@ Kept from the JAX package:
 The render is ``ops/composite_vjp.py``: the CUDA compositor (K2') and its
 backward kernel (K3) on the card, their plain torch versions on the CPU.
 
-Dropped: ``backend``, ``render_fn`` and ``max_per_tile`` (the XLA backend
-selection and the tiled backend's per-tile cap; exact binning has no cap)
-and ``enable_compilation_cache`` (XLA's).  Data-parallel training
+``GSTrainer`` takes the reference's parameters in the reference's order,
+then ``device``; ``render_fn`` must be None, as ``rasterize_fn`` of the
+other entry points.  Dropped: ``enable_compilation_cache`` (XLA's).  Data-parallel training
 (``make_dp_train_step``, ``train(mesh=)``) runs a camera batch over the lanes
 of a ``parallel.mesh.Mesh``, one compositor pair per camera.  The wrapper's
 ``gui=True`` serves the cloud in training to a SIBR viewer
@@ -52,7 +52,7 @@ from pegasus_tpu_torch.gs.knn import mean_knn_dist2
 from pegasus_tpu_torch.ops.binning import bin_splats
 from pegasus_tpu_torch.ops.composite_vjp import composite_tiles_diff
 from pegasus_tpu_torch.ops.projection import project_gaussians
-from pegasus_tpu_torch.ops.rasterize_cuda import outputs_from_channels
+from pegasus_tpu_torch.ops.rasterize_cuda import outputs_from_channels, refuse_rasterize_fn
 from pegasus_tpu_torch.parallel.mesh import lane_slices, map_lanes, to_device
 from pegasus_tpu_torch.training.losses import gs_loss
 from pegasus_tpu_torch.utils import quaternion as quat
@@ -159,14 +159,33 @@ class GSTrainer:
     def __init__(
         self,
         config: TrainConfig,
+        render_fn=None,
         width: int = 128,
         height: int = 128,
         background=(0.0, 0.0, 0.0),
+        max_per_tile: int = 1024,
+        backend: str = "auto",
         device=DEFAULT_DEVICE,
     ):
+        """backend: ``"auto"`` or ``"pallas"``; both train through the
+        compositor pair (K2' and K3, the counterpart of the reference's
+        Pallas pair; their plain versions on the CPU), so ``self.backend``
+        is ``"pallas"``.  The reference's ``"tiled"`` (its XLA rasterizer,
+        not ported) and ``"pallas_interpret"`` (whose counterpart is
+        ``device="cpu"``) raise.  ``max_per_tile`` is kept and ignored:
+        exact binning has no per-tile cap."""
+        refuse_rasterize_fn(render_fn)
+        if backend not in ("auto", "pallas"):
+            raise ValueError(
+                f"backend={backend!r}: this package takes 'auto' or 'pallas' (its CUDA "
+                "compositor pair); the XLA tiled rasterizer is not ported, and the "
+                "counterpart of 'pallas_interpret' is device='cpu'"
+            )
         self.config = config
         self.width = width
         self.height = height
+        self.max_per_tile = max_per_tile
+        self.backend = "pallas"
         self.device = resolve_device(device)
         self.background = tuple(float(b) for b in background)
         c = config

@@ -174,12 +174,12 @@ def test_abs_grad_statistic_dominates_signed(setup):
     parameter step unchanged."""
     _, tcams, gts, pts, colors = setup
     config = TrainConfig(capacity=512)
-    s0 = GSTrainer(config, 32, 32, device="cpu").init_state(
+    s0 = GSTrainer(config, width=32, height=32, device="cpu").init_state(
         init_from_points(pts, colors, config, device="cpu"), spatial_lr_scale=0.5)
     gt = torch.tensor(gts[0])
-    s_sig, m_sig = GSTrainer(config, 32, 32, device="cpu").train_step(s0, tcams[0], gt)
+    s_sig, m_sig = GSTrainer(config, width=32, height=32, device="cpu").train_step(s0, tcams[0], gt)
     abs_cfg = TrainConfig(capacity=512, densify_abs_grad=True)
-    s_abs, m_abs = GSTrainer(abs_cfg, 32, 32, device="cpu").train_step(s0, tcams[0], gt)
+    s_abs, m_abs = GSTrainer(abs_cfg, width=32, height=32, device="cpu").train_step(s0, tcams[0], gt)
     assert float(m_sig["loss"]) == float(m_abs["loss"])
     torch.testing.assert_close(s_sig.cloud.xyz, s_abs.cloud.xyz, rtol=1e-5, atol=1e-7)
     g_sig, g_abs = s_sig.xyz_grad_accum.numpy(), s_abs.xyz_grad_accum.numpy()
@@ -216,7 +216,7 @@ def test_densify_and_prune_matches_reference(setup):
     noise = torch.tensor(np.asarray(jax.random.normal(key, (128, 3))))
     noise2 = torch.tensor(np.asarray(jax.random.normal(jax.random.fold_in(key, 1), (cap, 3))))
 
-    tt = GSTrainer(TrainConfig(capacity=512, max_split_per_round=128), 32, 32, device="cpu")
+    tt = GSTrainer(TrainConfig(capacity=512, max_split_per_round=128), width=32, height=32, device="cpu")
     before = j_state_to_numpy(s)
     got = tt.densify_with_noise(train_state_from_numpy(before, device="cpu"), noise, noise2, extent)
 
@@ -237,7 +237,7 @@ def test_checkpoint_round_trip(setup, tmp_path):
     """(l) save_checkpoint / restore_checkpoint of a TrainState."""
     _, tcams, gts, pts, colors = setup
     config = TrainConfig(capacity=512)
-    trainer = GSTrainer(config, 32, 32, device="cpu")
+    trainer = GSTrainer(config, width=32, height=32, device="cpu")
     state = trainer.init_state(init_from_points(pts, colors, config, device="cpu"), 0.5)
     state, _ = trainer.train_step(state, tcams[2], torch.tensor(gts[2]))
     save_checkpoint(state, tmp_path / "ckpt" / "state.pt")
@@ -249,7 +249,7 @@ def test_checkpoint_round_trip(setup, tmp_path):
         assert torch.equal(back.mu[g], state.mu[g]) and torch.equal(back.nu[g], state.nu[g])
     assert (back.count, back.step, back.spatial_lr_scale) == (1, 1, 0.5)
     assert torch.equal(back.xyz_grad_accum, state.xyz_grad_accum)
-    small = GSTrainer(TrainConfig(capacity=256), 32, 32, device="cpu").init_state(
+    small = GSTrainer(TrainConfig(capacity=256), width=32, height=32, device="cpu").init_state(
         init_from_points(pts, colors, TrainConfig(capacity=256), device="cpu"))
     with pytest.raises(ValueError, match="template"):
         restore_checkpoint(small, tmp_path / "ckpt" / "state.pt")
