@@ -169,13 +169,38 @@ Phases, each of which fails the run (nonzero exit) on any miss:
    reference-signature render wrappers over phase 5's dataset, equal to one
    ``render_frame`` / ``rasterize`` bitwise.
 
+17. the renderer seam (a caller's renderer on the same kernels): (a) the
+   210k orbit view at 640x480, K = 7, through ``rasterize_tiled`` at
+   ``max_per_tile=1024`` (one K1 launch; the cap binds: the longest
+   segment holds 5,738 entries), K1 on the capped bins against its plain
+   version (>= 60 dB, phase 3's limits), the render equal to K1 on
+   ``cap_bins`` bitwise, and at a cap of the longest segment bitwise equal
+   to ``rasterize``; prints the entries dropped, the tiles capped, the
+   render's ms beside ``rasterize``'s and K1's on capped beside full bins;
+   (b) ``GSTrainer(cfg, None, 512, 512, max_per_tile=1024,
+   backend="tiled")`` on the training box (150k splats, max 2,875 entries
+   per tile) started from its colours and opacities perturbed: 20 steps
+   with one K2′ and one K3 launch each and the loss falling, two steps from
+   one state bitwise equal, one step's K3 rows against the plain version on
+   the same capped bins (phase 7's gate), the sum to splats of capped bins
+   against a float64 host sum of the kept entries; ms per step beside
+   ``"auto"``'s, in turns; (c) ``PEGASUS(..., rasterize_fn=rasterize_tiled)``
+   writes phase 5's static scene at C = 8 (one launch per frame, BOP tree
+   and ``check_bop_dataset`` clean), and ``rasterize_fn=rasterize_reference``
+   (the golden compositor, O(pixels x splats): a small dataset of a
+   20k-splat environment and six 2k-splat objects, 8 frames, one chunk)
+   writes files that match ``rasterize_fn=None``'s: JSON bytes equal, rgb
+   >= 40 dB, masks <= 0.5 % of pixels, depth within 1 mm on >= 99 % of
+   covered pixels.  The phase's launches count in the kernels line.
+
 After phase 5 the compact-readback case runs the static replayed scene once
 more with and without ``compact_readback`` (chunks of 8): every PNG and JSON
 byte-identical; prints the bytes moved per frame both ways and frames/s.
 
 ``--from-phase N`` (N > 3) skips phases 3 to N - 1 while a later phase is
-worked on (12: the build, the compact-readback case and phases 12-16; 16:
-the build and phase 16); such a run prints no result lines.  The last two lines of a
+worked on (12: the build, the compact-readback case and phases 12-17; 16:
+the build and phases 16-17; 17: the build and phase 17); such a run prints
+no result lines.  The last two lines of a
 whole run are one JSON object for the kernels and one for the device; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -271,7 +296,7 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bench_scenes(device):
+def bench_scenes(device, names=("210k", "1M")):
     """The reference bench's 210k and 1M scenes (bench.py:261-276, 202-212)."""
     import numpy as np
 
@@ -290,7 +315,8 @@ def bench_scenes(device):
         ]
         return merge([env] + objs)
 
-    return {"210k": scene(7, 150_000, 10_000), "1M": scene(11, 820_000, 30_000)}
+    makers = {"210k": lambda: scene(7, 150_000, 10_000), "1M": lambda: scene(11, 820_000, 30_000)}
+    return {name: makers[name]() for name in names}
 
 
 def bench_cameras(device):
@@ -481,7 +507,7 @@ def _read_png(path):
 
 def scene_pegasus(data: Path, out: Path, name: str, mode: str, num_cameras: int,
                   n_interp: int, device, compact_readback: bool = False,
-                  publish2gui: bool = False, frame_chunk: int = 8):
+                  publish2gui: bool = False, frame_chunk: int = 8, rasterize_fn=None):
     """A PEGASUS replaying the committed trajectory, set up up to
     ``init_start_position`` (the loading is not part of any timing)."""
     from pegasus_tpu_torch.assets.registry import Asset
@@ -498,7 +524,7 @@ def scene_pegasus(data: Path, out: Path, name: str, mode: str, num_cameras: int,
         render_width=WIDTH, num_cameras=num_cameras, simulation_steps=310,
         num_camera_interpolation_steps=n_interp, dataset_base_path=str(out),
         seed=3, QUIET=True, device=device, compact_readback=compact_readback,
-        publish2gui=publish2gui, frame_chunk=frame_chunk,
+        publish2gui=publish2gui, frame_chunk=frame_chunk, rasterize_fn=rasterize_fn,
     )
     peg.physics_file = str(TRAJECTORY)
     peg.selected_env_name = SMOKE_ENV[0]
@@ -528,7 +554,7 @@ def trace_summary(prof) -> dict:
 
 def run_scene(data: Path, out: Path, name: str, mode: str, num_cameras: int,
               n_interp: int, device, save_bop: bool = True, frame_chunk: int = 8,
-              trace: bool = False):
+              trace: bool = False, rasterize_fn=None):
     """Generate and save one scene; returns (pegasus, frames, host stats).
 
     Host stats: wall seconds of ``generate_dataset`` + ``save2bop``, the
@@ -547,7 +573,7 @@ def run_scene(data: Path, out: Path, name: str, mode: str, num_cameras: int,
     from pegasus_tpu_torch.testing import SMOKE_OBJECTS
 
     peg = scene_pegasus(data, out, name, mode, num_cameras, n_interp, device,
-                        frame_chunk=frame_chunk)
+                        frame_chunk=frame_chunk, rasterize_fn=rasterize_fn)
     load = os.getloadavg()[0]
     launches, reads = rasterize_cuda.composite_tiles.launches, bin_splats.host_reads
     tracer = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if trace
@@ -828,7 +854,8 @@ def compositor_bounds(bins, width, height, k):
     backward's least work reads the forward's output besides the cotangent
     (one walk instead of two, see OPS_BWD_KEPT)."""
     pairs, kept, kept_obj = pair_counts(bins, width, height)
-    n, m, n_tiles = bins.params.shape[1], bins.entry_splat.numel(), bins.tile_start.numel()
+    # entries in segments: all of them, or those cap_bins kept
+    n, m, n_tiles = bins.params.shape[1], int(bins.tile_count.sum()), bins.tile_start.numel()
     inputs = 4 * (12 * n + m + 2 * n_tiles)
     pixels = bins.n_frames * height * width
     image = 4 * pixels * (5 + 3 * k + 2)
@@ -860,8 +887,10 @@ def train_camera(device):
 
 def backward_rows_vs_plain(label, bins, grad, out, partials, width, height, k, chunk_entries):
     """K3 against its plain version, both fed the forward kernel's output
-    and partials: per gradient row, cosine >= 0.99999 and max |diff| <=
-    1e-4 x max |gradient|.  Returns [(cosine, max |diff|, max |g|)]."""
+    and partials: per gradient row over the entries in segments (all of
+    them, or those ``cap_bins`` kept; K3 leaves the others unwritten),
+    cosine >= 0.99999 and max |diff| <= 1e-4 x max |gradient|.  Returns
+    [(cosine, max |diff|, max |g|)]."""
     import torch
 
     from pegasus_tpu_torch.ops.composite_vjp import (composite_tiles_backward,
@@ -871,6 +900,8 @@ def backward_rows_vs_plain(label, bins, grad, out, partials, width, height, k, c
     want = composite_tiles_backward_torch(bins, grad, out, partials, width, height, k,
                                           chunk_entries=chunk_entries)
     torch.cuda.synchronize()
+    n = int(bins.tile_count.sum())
+    got, want = got[:, :n], want[:, :n]
     require(torch.isfinite(got).all(), f"{label}: non-finite backward kernel output")
     rows = []
     for r in range(got.shape[0]):
@@ -2373,14 +2404,271 @@ def asset_and_viewing_phase(tmp: Path, data: Path, out: Path, device, card: str)
                          "render_wrappers": 0}}
 
 
+TILED_CAP = 1024  # max_per_tile of the reference's tiled renderer and trainer (its default)
+
+
+def tiled_render_case(device, card: str, k: int) -> dict:
+    """Phase 17 (a): the 210k orbit view through ``rasterize_tiled`` at the
+    default cap; returns its K1 launches and the numbers for the kernels
+    line."""
+    import torch
+
+    from pegasus_tpu_torch.ops import rasterize_cuda
+    from pegasus_tpu_torch.ops.binning import bin_splats, cap_bins
+    from pegasus_tpu_torch.ops.projection import project_gaussians
+    from pegasus_tpu_torch.ops.rasterize_cuda import (composite_tiles, composite_tiles_torch,
+                                                       outputs_from_channels, rasterize)
+    from pegasus_tpu_torch.ops.rasterize_tiled import rasterize_tiled
+
+    scene = bench_scenes(device, ("210k",))["210k"]
+    cam = bench_cameras(device)["orbit"]
+    rasterize_cuda.composite_tiles.launches = 0
+    with torch.no_grad():
+        out = rasterize_tiled(scene, cam, max_objects=k, max_per_tile=TILED_CAP)
+    torch.cuda.synchronize()
+    launches = rasterize_cuda.composite_tiles.launches
+    require(launches == 1, f"rasterize_tiled launched K1 {launches} times")
+    require(all(bool(torch.isfinite(f).all()) for f in out), "non-finite capped render")
+
+    bins = bin_splats(project_gaussians(scene, cam), WIDTH, HEIGHT)
+    capped = cap_bins(bins, TILED_CAP)
+    longest = int(bins.tile_count.max())
+    tiles_capped = int((bins.tile_count > TILED_CAP).sum())
+    kept = int(capped.tile_count.sum())
+    dropped = bins.entry_splat.numel() - kept
+    require(tiles_capped > 0 and dropped > 0, f"the cap does not bind: longest segment {longest}")
+    err = forward_vs_plain(f"210k orbit capped at {TILED_CAP}", capped, WIDTH, HEIGHT, k)
+    bg = (0.0, 0.0, 0.0)
+    direct = outputs_from_channels(composite_tiles(capped, WIDTH, HEIGHT, k), bg, k)
+    require(all(torch.equal(a, b) for a, b in zip(out, direct)),
+            "rasterize_tiled differs from K1 on cap_bins")
+    with torch.no_grad():
+        wide = rasterize_tiled(scene, cam, max_objects=k, max_per_tile=longest)
+        plain_render = rasterize(scene, cam, max_objects=k)
+    require(all(torch.equal(a, b) for a, b in zip(wide, plain_render)),
+            f"rasterize_tiled at max_per_tile={longest} differs from rasterize")
+
+    render_ms, rasterize_ms, render_runs = time_pair(
+        lambda: rasterize_tiled(scene, cam, max_objects=k, max_per_tile=TILED_CAP),
+        lambda: rasterize(scene, cam, max_objects=k), n_kernel=10, n_plain=10)
+    ms, full_ms, k1_runs = time_pair(lambda: composite_tiles(capped, WIDTH, HEIGHT, k),
+                                     lambda: composite_tiles(bins, WIDTH, HEIGHT, k), n_plain=20)
+    plain_ms = min(cuda_ms(lambda: composite_tiles_torch(capped, WIDTH, HEIGHT, k), 1) for _ in range(2))
+    cap_ms = cuda_ms(lambda: cap_bins(bins, TILED_CAP), 20)
+    bound_ms, bound_by = compositor_bounds(capped, WIDTH, HEIGHT, k)["fwd"]
+    print(f"tiled render 210k orbit K={k} max_per_tile={TILED_CAP}: longest segment {longest}, "
+          f"{tiles_capped} of {bins.tile_count.numel()} tiles capped, {dropped} of "
+          f"{bins.entry_splat.numel()} entries dropped; K1 launches {launches}; bitwise equal to "
+          f"rasterize at max_per_tile={longest}; rasterize_tiled {render_runs[1]:.4f}/{render_runs[2]:.4f} "
+          f"ms, rasterize {render_runs[0]:.4f}/{render_runs[3]:.4f} ms (project, bin and K1); K1 capped "
+          f"{k1_runs[1]:.4f}/{k1_runs[2]:.4f} ms, full {k1_runs[0]:.4f}/{k1_runs[3]:.4f} ms, plain "
+          f"capped {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); cap_bins {cap_ms:.4f} ms "
+          f"card={card}", flush=True)
+    return {"launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "render_ms": render_ms,
+            "rasterize_ms": rasterize_ms, "dropped": dropped, "tiles_capped": tiles_capped}
+
+
+def tiled_training_case(device, card: str) -> dict:
+    """Phase 17 (b): ``GSTrainer(..., backend="tiled")`` at the training
+    shape; returns its K2′ and K3 launches and ms per step."""
+    import torch
+
+    from pegasus_tpu_torch.camera import Camera
+    from pegasus_tpu_torch.ops import composite_vjp, rasterize_cuda
+    from pegasus_tpu_torch.ops.binning import bin_splats, cap_bins
+    from pegasus_tpu_torch.ops.composite_vjp import N_GRAD, entry_grads_to_splats
+    from pegasus_tpu_torch.ops.projection import project_gaussians
+    from pegasus_tpu_torch.ops.rasterize_cuda import CHUNK_ENTRIES, rasterize
+    from pegasus_tpu_torch.training.trainer import GSTrainer, TrainConfig
+
+    box = train_box_cloud(device)
+    cams = [train_camera(device)] + [
+        Camera.look_at(eye=(0.75 * math.cos(a), 0.75 * math.sin(a), 0.5), target=(0, 0, 0),
+                       up=(0, 0, 1), fovx=math.radians(55), fovy=math.radians(55),
+                       width=TRAIN_SIZE, height=TRAIN_SIZE, device=device)
+        for a in (1.2, 2.8, 4.4)]
+    with torch.no_grad():
+        gts = [torch.clamp(rasterize(box, cam, max_objects=1).rgb, 0, 1) for cam in cams]
+    gen = torch.Generator().manual_seed(17)
+    start = box.replace(f_dc=box.f_dc + 0.3 * torch.randn(box.f_dc.shape, generator=gen).to(device),
+                        opacity=box.opacity + 0.5 * torch.randn(box.opacity.shape, generator=gen).to(device))
+    bins = bin_splats(project_gaussians(start, cams[0]), TRAIN_SIZE, TRAIN_SIZE)
+    tiles_capped = int((bins.tile_count > TILED_CAP).sum())
+    dropped = bins.entry_splat.numel() - int(cap_bins(bins, TILED_CAP).tile_count.sum())
+    require(tiles_capped > 0, f"the cap does not bind at the training shape: {int(bins.tile_count.max())}")
+    config = TrainConfig(capacity=TRAIN_CAPACITY)
+    tiled = GSTrainer(config, None, TRAIN_SIZE, TRAIN_SIZE, max_per_tile=TILED_CAP, backend="tiled",
+                      device=device)
+    state = tiled.init_state(start)
+
+    rasterize_cuda.composite_tiles.launches = composite_vjp.composite_tiles_backward.launches = 0
+    losses = []
+    for i in range(20):
+        state, metrics = tiled.train_step(state, cams[i % 4], gts[i % 4])
+        losses.append(float(metrics["loss"]))
+    torch.cuda.synchronize()
+    launches = {"forward": rasterize_cuda.composite_tiles.launches,
+                "backward": composite_vjp.composite_tiles_backward.launches}
+    require(launches == {"forward": 20, "backward": 20}, f"tiled training launches {launches}")
+    first, last = sum(losses[:4]) / 4, sum(losses[-4:]) / 4
+    require(last < first, f"tiled training: loss {first} -> {last}")
+
+    one, _ = tiled.train_step(state, cams[1], gts[1])
+    two, _ = tiled.train_step(state, cams[1], gts[1])
+    differ = train_state_differences(one, two)
+    require(not differ, f"two tiled train_steps from one state differ: {differ}")
+
+    # one step's K3 rows against the plain version on the step's own capped bins
+    seen = {}
+    real = composite_vjp.composite_tiles_backward
+
+    def spy(bins_, grad, out, partials, width, height, k, *rest):
+        seen.update(bins=bins_, grad=grad.clone(), out=out, partials=partials)
+        return real(bins_, grad, out, partials, width, height, k, *rest)
+
+    spy.launches = real.launches  # the wrapper counts through the module's name
+    composite_vjp.composite_tiles_backward = spy
+    try:
+        tiled.train_step(state, cams[0], gts[0])
+    finally:
+        composite_vjp.composite_tiles_backward = real
+        real.launches = spy.launches
+    step_bins = seen["bins"]
+    n_keep = int(step_bins.tile_count.sum())
+    require(int(step_bins.tile_count.max()) == TILED_CAP and n_keep < step_bins.entry_splat.numel(),
+            "the step's bins are not capped")
+    with torch.no_grad():
+        rows = backward_rows_vs_plain("tiled step 512x512 K=1", step_bins, seen["grad"], seen["out"],
+                                      seen["partials"], TRAIN_SIZE, TRAIN_SIZE, 1, CHUNK_ENTRIES)
+    g = torch.randn((N_GRAD, step_bins.entry_splat.numel()),
+                    generator=torch.Generator().manual_seed(11)).to(device)
+    g[:, n_keep:] = float("nan")  # rows of dropped entries are never read
+    sums = [entry_grads_to_splats(step_bins, g) for _ in range(3)]
+    ref = torch.zeros(N_GRAD, step_bins.params.shape[1], dtype=torch.float64)
+    ref.index_add_(1, step_bins.entry_splat[:n_keep].cpu().long(), g[:, :n_keep].cpu().double())
+    diff = float((sums[0][:N_GRAD].cpu().double() - ref).abs().max())
+    require(all(torch.equal(sums[0], x) for x in sums[1:]) and diff <= 1e-6 * float(ref.abs().max()),
+            f"sum to splats of capped bins: repeatable {[torch.equal(sums[0], x) for x in sums[1:]]}, "
+            f"max|diff| {diff}")
+
+    auto = GSTrainer(config, None, TRAIN_SIZE, TRAIN_SIZE, device=device)
+    states = {"tiled": state, "auto": auto.init_state(start)}
+    trainers = {"tiled": tiled, "auto": auto}
+
+    def timed(name):
+        st = states[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(10):
+            st, _ = trainers[name].train_step(st, cams[i % 4], gts[i % 4])
+        torch.cuda.synchronize()
+        states[name] = st
+        return (time.perf_counter() - t0) * 1e3 / 10
+
+    timed("auto")  # warm-up
+    runs = [timed(name) for name in ("auto", "tiled", "tiled", "auto")]
+    print(f"tiled training 512x512 max_per_tile={TILED_CAP}: {tiles_capped} tiles capped, {dropped} "
+          f"entries dropped at the first view; 20 steps, launches {json.dumps(launches)}, loss "
+          f"{first:.5f} -> {last:.5f} (mean of 4 steps); two steps from one state bitwise equal; K3 "
+          f"rows vs plain on the step's capped bins min_cosine {min(c for c, _, _ in rows):.8f} "
+          f"max_abs_err {max(e for _, e, _ in rows):.3e}; sum to splats bitwise repeatable, max|diff| "
+          f"{diff:.3e} against a float64 host sum of the kept entries; train_step ms tiled "
+          f"{runs[1]:.3f}/{runs[2]:.3f}, auto {runs[0]:.3f}/{runs[3]:.3f} (host clock over 10 steps "
+          f"ending in synchronize) card={card}", flush=True)
+    return {**launches, "tiled_ms": min(runs[1:3]), "auto_ms": min(runs[0], runs[3])}
+
+
+def renderer_choice_case(tmp: Path, data: Path, out: Path, device, card: str) -> int:
+    """Phase 17 (c): ``PEGASUS(rasterize_fn=)`` with the tiled renderer on
+    phase 5's static scene and with the golden compositor on a small scene
+    beside ``rasterize_fn=None``; returns the K1 launches."""
+    import numpy as np
+
+    from pegasus_tpu_torch.eval import check_bop_dataset
+    from pegasus_tpu_torch.ops import rasterize_cuda
+    from pegasus_tpu_torch.ops.rasterize_ref import rasterize_reference
+    from pegasus_tpu_torch.ops.rasterize_tiled import rasterize_tiled
+    from pegasus_tpu_torch.testing import SMOKE_OBJECTS, build_synthetic_dataset
+
+    rasterize_cuda.composite_tiles.launches = 0
+    _, n, host = run_scene(data, out, "smoke_static_tiled", "static", 10, 4, device, frame_chunk=8,
+                           rasterize_fn=rasterize_tiled)
+    require(n == 40 and host["launches"] == host["host_reads"] == n,
+            f"rasterize_fn=rasterize_tiled: {host['launches']} launches for {n} frames")
+    report = check_bop_dataset(out, "smoke_static_tiled")
+    require(report["ok"], report["errors"])
+
+    small = tmp / "small_data"
+    build_synthetic_dataset(small, object_names=[n_ for n_, _ in SMOKE_OBJECTS],
+                            env_splats=20_000, obj_splats=2_000)
+    t0 = time.perf_counter()
+    _, n_small, golden = run_scene(small, out, "smoke_golden", "static", 2, 4, device, frame_chunk=8,
+                                   rasterize_fn=rasterize_reference)
+    golden_s = time.perf_counter() - t0
+    _, _, kernel = run_scene(small, out, "smoke_golden_none", "static", 2, 4, device, frame_chunk=8)
+    launches = rasterize_cuda.composite_tiles.launches
+    require(golden["launches"] == 0 and kernel["launches"] == 1, (golden["launches"], kernel["launches"]))
+
+    a_root, b_root = out / "smoke_golden" / "train" / "000001", out / "smoke_golden_none" / "train" / "000001"
+    files = sorted(p.relative_to(a_root) for p in a_root.rglob("*") if p.is_file())
+    require(files == sorted(p.relative_to(b_root) for p in b_root.rglob("*") if p.is_file()),
+            "the golden and kernel trees hold other files")
+    worst = {"rgb_db": float("inf"), "mask": 0.0, "depth_1mm": 1.0}
+    for rel in files:
+        a, b = a_root / rel, b_root / rel
+        if rel.suffix != ".png":
+            require(a.read_bytes() == b.read_bytes(), f"{rel} differs between renderers")
+            continue
+        x, y = _read_png(a).astype(np.float64), _read_png(b).astype(np.float64)
+        kind = rel.parts[0]
+        if kind == "rgb":
+            mse = float(((x - y) ** 2).mean()) / 255.0**2
+            worst["rgb_db"] = min(worst["rgb_db"], float("inf") if mse == 0 else -10 * math.log10(mse))
+        elif kind == "depth":
+            covered = (x > 0) | (y > 0)
+            if covered.any():
+                worst["depth_1mm"] = min(worst["depth_1mm"], float((np.abs(x - y)[covered] <= 1).mean()))
+        else:
+            differ = (x != y).reshape(x.shape[0], x.shape[1], -1).any(-1).mean()
+            worst["mask"] = max(worst["mask"], float(differ))
+    require(worst["rgb_db"] >= GOLDEN_GATE_DB and worst["mask"] <= 0.005 and worst["depth_1mm"] >= 0.99,
+            f"rasterize_fn=rasterize_reference against None: {worst}")
+    print(f"renderer choice: PEGASUS(rasterize_fn=rasterize_tiled) {n} frames, {host['launches']} K1 "
+          f"launches (one per frame), {n / host['wall_s']:.3f} frames/s with PNG writes, "
+          f"check_bop_dataset clean; rasterize_fn=rasterize_reference on {n_small} frames of a "
+          f"20k + 6 x 2k splat scene {golden_s:.3f} s (0 K1 launches) against rasterize_fn=None "
+          f"(1 launch): JSON bytes equal, worst rgb {worst['rgb_db']:.2f} dB, masks "
+          f"{100 * worst['mask']:.4f} % of pixels, depth within 1 mm on "
+          f"{100 * worst['depth_1mm']:.4f} % card={card}", flush=True)
+    return launches
+
+
+def renderer_seam_phase(tmp: Path, data: Path, out: Path, device, card: str, k: int) -> dict:
+    """Phase 17: a caller's renderer on the existing kernels.  Returns the
+    launches of each kernel over the phase's main-path runs (comparisons
+    with the plain versions excluded) and the capped-bins numbers."""
+    import torch
+
+    t0 = time.perf_counter()
+    render = tiled_render_case(device, card, k)
+    torch.cuda.empty_cache()
+    train = tiled_training_case(device, card)
+    torch.cuda.empty_cache()
+    generate = renderer_choice_case(tmp, data, out, device, card)
+    print(f"phase 17: {time.perf_counter() - t0:.1f} s card={card}", flush=True)
+    return {"forward": render["launches"] + train["forward"] + generate,
+            "backward": train["backward"], "render": render, "train": train}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
                         help="also time simulate_variants(1000) in phase 9")
     parser.add_argument("--from-phase", type=int, default=1, metavar="N",
                         help="skip phases 3 to N - 1 (N > 3); such a run prints no result lines; "
-                             "12 runs the build, the compact-readback case and phases 12-16, "
-                             "16 the build and phase 16")
+                             "12 runs the build, the compact-readback case and phases 12-17, "
+                             "16 the build and phases 16-17, 17 the build and phase 17")
     args = parser.parse_args()
     t_start = time.perf_counter()
     whole = args.from_phase <= 3
@@ -2487,7 +2775,11 @@ def main() -> int:
             rehearsal_launches = dress_rehearsal_phase(Path(tmp), dev, card)
             torch.cuda.empty_cache()
         # -- phase 16: asset building and viewing -----------------------------------------------------------
-        periphery = asset_and_viewing_phase(Path(tmp), data, out, dev, card)
+        if args.from_phase <= 16:
+            periphery = asset_and_viewing_phase(Path(tmp), data, out, dev, card)
+            torch.cuda.empty_cache()
+        # -- phase 17: the renderer seam ----------------------------------------------------------------------
+        seam = renderer_seam_phase(Path(tmp), data, out, dev, card, max_objects)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
     if not whole:
@@ -2501,7 +2793,7 @@ def main() -> int:
         "launches": (gen_launches + compact_launches + train_launches["forward"] + loop_launches
                      + variant_launches + sharded_launches + sharded_gen_launches
                      + dp_launches["forward"] + rehearsal_launches
-                     + sum(periphery["forward"].values())),
+                     + sum(periphery["forward"].values()) + seam["forward"]),
         "launches_generation": gen_launches,
         "launches_compact_readback": compact_launches,
         "launches_training": train_launches["forward"],
@@ -2514,8 +2806,10 @@ def main() -> int:
         "launches_reconstruction": periphery["forward"]["reconstruction"],
         "launches_gui": periphery["forward"]["gui"],
         "launches_render_wrappers": periphery["forward"]["render_wrappers"],
+        "launches_renderer_seam": seam["forward"],
         "max_abs_err": max(max_abs_err, bwd_train["fwd_max_abs_err"], bwd_210k["fwd_max_abs_err"],
-                           chunk_k1["max_abs_err"], *(f for f, _ in stress)),
+                           chunk_k1["max_abs_err"], seam["render"]["max_abs_err"],
+                           *(f for f, _ in stress)),
         "chunk_entries": CHUNK_ENTRIES,
         "items": timings["210k"]["hist"]["items"][CHUNK_ENTRIES],
         "items_1m": timings["1M"]["hist"]["items"][CHUNK_ENTRIES],
@@ -2538,18 +2832,25 @@ def main() -> int:
         "ms_train": bwd_train["fwd_ms"],
         "plain_ms_train": bwd_train["fwd_plain_ms"],
         "bound_ms_train": bwd_train["fwd"][0],
+        # the 210k orbit view's bins capped at 1024 entries per tile (rasterize_tiled)
+        "ms_capped": seam["render"]["ms"],
+        "plain_ms_capped": seam["render"]["plain_ms"],
+        "bound_ms_capped": seam["render"]["bound_ms"],
+        "bound_by_capped": seam["render"]["bound_by"],
+        "entries_dropped_capped": seam["render"]["dropped"],
     }, {
         "name": "composite_tiles_backward",
         "route": "cuda",
         "source": "pegasus_tpu_torch/csrc/composite_tiles_bwd.cu",
         "replaces": "pegasus_tpu/ops/pallas_vjp.py:105",
         "launches": (train_launches["backward"] + dp_launches["backward"]
-                     + sum(periphery["backward"].values())),
+                     + sum(periphery["backward"].values()) + seam["backward"]),
         "launches_training": train_launches["backward"],
         "launches_dp_step": dp_launches["backward"],
         "launches_reconstruction": periphery["backward"]["reconstruction"],
         "launches_gui": periphery["backward"]["gui"],
         "launches_render_wrappers": periphery["backward"]["render_wrappers"],
+        "launches_renderer_seam": seam["backward"],
         "max_abs_err": max(bwd_train["max_abs_err"], bwd_210k["max_abs_err"]),
         "max_abs_err_stress": max(b for _, b in stress),
         "chunk_entries": CHUNK_ENTRIES,

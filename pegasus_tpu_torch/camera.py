@@ -145,6 +145,8 @@ class CameraBatch:
     focal_y: torch.Tensor
     width: int
     height: int
+    # the cameras themselves, for a renderer that takes one Camera at a time
+    cameras: tuple = dataclasses.field(default=(), repr=False, compare=False)
 
     @classmethod
     def stack(cls, cams) -> "CameraBatch":
@@ -163,7 +165,7 @@ class CameraBatch:
             t_w2c=torch.stack([c.t_w2c for c in cams]),
             camera_center=torch.stack([c.camera_center for c in cams]),
             tan_x=tan_x, tan_y=tan_y, focal_x=focal_x, focal_y=focal_y,
-            width=w, height=h,
+            width=w, height=h, cameras=tuple(cams),
         )
 
     def __len__(self) -> int:
@@ -174,7 +176,7 @@ class CameraBatch:
         return CameraBatch(
             *(getattr(self, f)[index] for f in ("R_w2c", "t_w2c", "camera_center",
                                                  "tan_x", "tan_y", "focal_x", "focal_y")),
-            width=self.width, height=self.height,
+            width=self.width, height=self.height, cameras=self.cameras[index],
         )
 
     @property

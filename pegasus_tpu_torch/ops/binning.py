@@ -65,7 +65,10 @@ class TileBins(NamedTuple):
     Tile t's entries are entry_splat[tile_start[t] : tile_start[t] +
     tile_count[t]], front to back.  Tiles are row-major within a frame and
     frames follow each other: t = (frame * n_tiles_y + ty) * n_tiles_x + tx;
-    splats likewise, N per frame.
+    splats likewise, N per frame.  The segments fill entry_splat from the
+    front; entries past sum(tile_count) belong to no tile (the entries that
+    ``cap_bins`` dropped), and splat_order / splat_count cover only the
+    entries in segments.
     """
 
     params: torch.Tensor  # [PARAM_DIM, n_frames * N] float32
@@ -76,9 +79,9 @@ class TileBins(NamedTuple):
     n_tiles_y: int
     max_object_id: int  # largest object id among binned splats (-1 if none)
     # the entries grouped by splat, each splat's in entry order
-    # (entry_splat[splat_order] is sorted, stably), and each splat's entry
-    # count: the backward sums a splat's gradients in this fixed order
-    # instead of with atomics
+    # (entry_splat[splat_order] is sorted, stably), then the entries in no
+    # segment; and each splat's count of entries in segments: the backward
+    # sums a splat's gradients in this fixed order instead of with atomics
     splat_order: torch.Tensor  # [M] int64
     splat_count: torch.Tensor  # [n_frames * N] int64
     n_frames: int = 1
@@ -179,3 +182,55 @@ def bin_splats(
 
 
 bin_splats.host_reads = 0  # blocking device-to-host reads, one per call
+
+
+def _partition(keep: torch.Tensor, n_keep: torch.Tensor) -> torch.Tensor:
+    """Each element's slot when the ``keep`` ones move to the front and the
+    others after them, both in their order (``n_keep`` = keep.sum(), on the
+    device)."""
+    before = torch.cumsum(keep, 0) - keep.long()  # kept elements before this one
+    index = torch.arange(keep.numel(), device=keep.device)
+    return torch.where(keep, before, n_keep + index - before)
+
+
+def cap_bins(bins: TileBins, max_per_tile: int) -> TileBins:
+    """Bins that keep each tile's first ``max_per_tile`` entries, front to
+    back (every tile of every frame of a chunk), and drop the rest.
+
+    The kept entries are compacted to the front of ``entry_splat`` in their
+    order and the dropped ones follow them, in no tile's segment: every
+    array keeps its length, so nothing is read back to the host to size it.
+    ``tile_start`` and ``tile_count`` are recomputed, and ``splat_order`` /
+    ``splat_count`` rebuilt over the kept entries, so the backward's
+    per-entry rows and its sum to splats see the kept entries only.  A cap
+    at or above the longest segment gives bins equal to ``bins``."""
+    if max_per_tile < 1:
+        raise ValueError(f"max_per_tile={max_per_tile} < 1")
+    dev = bins.entry_splat.device
+    m = bins.entry_splat.numel()
+    count = bins.tile_count.long()
+    kept_count = torch.clamp(count, max=max_per_tile)
+    # each entry's tile (count.numel() past the last segment) and its rank there
+    entry = torch.arange(m, device=dev)
+    tile = torch.searchsorted(torch.cumsum(count, 0), entry, right=True)
+    in_segment = tile < count.numel()
+    start = bins.tile_start.long()[torch.clamp(tile, max=count.numel() - 1)]
+    keep = in_segment & (entry - start < max_per_tile)
+    n_keep = kept_count.sum()
+    dst = _partition(keep, n_keep)
+    entry_splat = torch.empty_like(bins.entry_splat)
+    entry_splat[dst] = bins.entry_splat
+    # splat_order: the entries' new places, grouped by splat as before, with
+    # the dropped ones moved behind every kept one
+    keep_grouped = keep[bins.splat_order]
+    splat_order = torch.empty_like(bins.splat_order)
+    splat_order[_partition(keep_grouped, n_keep)] = dst[bins.splat_order]
+    splat_count = torch.zeros_like(bins.splat_count).scatter_add_(
+        0, bins.entry_splat.long(), keep.long())
+    return bins._replace(
+        entry_splat=entry_splat,
+        tile_start=(torch.cumsum(kept_count, 0) - kept_count).to(torch.int32),
+        tile_count=kept_count.to(torch.int32),
+        splat_order=splat_order,
+        splat_count=splat_count,
+    )

@@ -94,7 +94,9 @@ def composite_tiles_backward(
     """Per-entry gradients [10, M] (rows P_MX .. P_DEPTH) from the cotangent
     ``grad_out`` [H, W, 5 + 3K + 2] of ``composite_tiles``' output ``out``,
     given that call's per-item ``partials`` (``return_partials=True``, the
-    same ``chunk_entries``).  Raises when either is missing.
+    same ``chunk_entries``).  Raises when either is missing.  The columns of
+    entries in no segment (those ``cap_bins`` dropped) are not written, and
+    ``sum_by_splat`` reads none of them.
 
     CPU tensors run ``composite_tiles_backward_torch``; CUDA tensors launch
     the kernel on the current stream (built at first use) or raise."""
@@ -245,9 +247,12 @@ def composite_tiles_backward_torch(
 def sum_by_splat(bins: TileBins, rows: torch.Tensor) -> torch.Tensor:
     """[R, M] per-entry rows -> [R, N] per-splat sums, each splat's entries
     added in entry order by one segmented sum (no atomics: the same bits
-    every run), with the bins' ``splat_order`` / ``splat_count``."""
+    every run), with the bins' ``splat_order`` / ``splat_count``.  Rows of
+    entries in no segment (dropped by ``cap_bins``) come last in
+    ``splat_order`` and are not summed; ``unsafe`` skips the check that the
+    counts add up to M, which would also read two values back to the host."""
     grouped = rows.T[bins.splat_order]  # [M, R], grouped by splat
-    return torch.segment_reduce(grouped, "sum", lengths=bins.splat_count, axis=0).T
+    return torch.segment_reduce(grouped, "sum", lengths=bins.splat_count, axis=0, unsafe=True).T
 
 
 def entry_grads_to_splats(bins: TileBins, entry_grad: torch.Tensor) -> torch.Tensor:
@@ -299,7 +304,9 @@ def composite_tiles_diff(
     bins: TileBins, width: int, height: int, max_objects: int, abs_grad_sink=None
 ) -> torch.Tensor:
     """Differentiable ``composite_tiles``: [H, W, F] with gradients to
-    ``bins.params`` (and ``abs_grad_sink``)."""
+    ``bins.params`` (and ``abs_grad_sink``).  Bins capped by ``cap_bins``
+    go through as they are: the forward, its saved partials, K3 and the sum
+    to splats all see the same kept entries."""
     return CompositeTiles.apply(
         bins.params, abs_grad_sink, bins.entry_splat, bins.tile_start, bins.tile_count,
         bins.splat_order, bins.splat_count, bins.n_tiles_x, bins.n_tiles_y, bins.max_object_id,

@@ -54,7 +54,12 @@ MAX_OBJECTS_LIMIT = 32  # the kernel's largest register-resident K
 CHUNK_ENTRIES = 256
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
-_BUILD_DIR = _CSRC / "build"
+# the kernels' build cache (utils/compile_cache.py may move it, or make each
+# process build afresh: PEGASUS_TPU_COMPILE_CACHE)
+DEFAULT_BUILD_DIR = _CSRC / "build"
+_BUILD_DIR = DEFAULT_BUILD_DIR
+_REUSE_BUILDS = True  # take a library an earlier process built
+_BUILT: set = set()  # libraries this process built
 # no --use_fast_math: the backward must recompute the forward's alphas exactly
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -81,8 +86,9 @@ def _find_nvcc(source: str) -> str:
 
 
 def build_kernel(source: str = "composite_tiles.cu") -> tuple[Path, str]:
-    """Compile ``csrc/<source>`` into a shared library in ``csrc/build/``,
-    once per content (the source, the shared headers and the flags).
+    """Compile ``csrc/<source>`` into a shared library in the build
+    directory (``csrc/build/`` unless ``enable_compilation_cache`` moved
+    it), once per content (the source, the shared headers and the flags).
     Returns (library path, compiler log; empty if cached).  Raises if nvcc
     is missing or the build fails."""
     src = _CSRC / source
@@ -91,7 +97,7 @@ def build_kernel(source: str = "composite_tiles.cu") -> tuple[Path, str]:
     )
     digest = hashlib.sha256(content + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
     lib_path = _BUILD_DIR / f"lib{src.stem}_{digest}.so"
-    if lib_path.exists():
+    if lib_path.exists() and (_REUSE_BUILDS or lib_path in _BUILT):
         return lib_path, ""
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
@@ -102,6 +108,7 @@ def build_kernel(source: str = "composite_tiles.cu") -> tuple[Path, str]:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed to build {source}:\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, lib_path)
+    _BUILT.add(lib_path)
     return lib_path, proc.stdout + proc.stderr
 
 
@@ -443,12 +450,3 @@ def rasterize_chunk(
     out = out.reshape(len(cams), cams.height, cams.width, -1)
     return outputs_from_channels(out, background, max_objects)
 
-
-def refuse_rasterize_fn(rasterize_fn) -> None:
-    """The reference's entry points take a ``rasterize_fn``; this package
-    renders with ``rasterize`` only, so it accepts ``None`` and nothing else."""
-    if rasterize_fn is not None:
-        raise ValueError(
-            "rasterize_fn: this package renders with ops.rasterize_cuda.rasterize "
-            "(the forward kernel on the card); pass None"
-        )

@@ -73,11 +73,20 @@ def render_frame(
     cam: Camera,
     semantic_colors: torch.Tensor,
     background=(0.0, 0.0, 0.0),
+    max_objects: int | None = None,
+    rasterize_fn=None,
+    **kwargs,
 ) -> FrameDataPoints:
-    """Render every modality for one camera in one pass (K = colours + 1:
-    channel 0 is the environment)."""
-    out = rasterize(scene, cam, background=background,
-                    max_objects=semantic_colors.shape[0] + 1)
+    """Render every modality for one camera in one pass.  ``max_objects``
+    defaults to colours + 1 (channel 0 is the environment).
+    ``rasterize_fn`` is called as ``rasterize_fn(scene, cam,
+    background=, max_objects=, **kwargs)``; None means ``rasterize`` (the
+    forward kernel on the card), where the JAX package's default is its
+    golden compositor."""
+    if max_objects is None:
+        max_objects = semantic_colors.shape[0] + 1
+    out = (rasterize if rasterize_fn is None else rasterize_fn)(
+        scene, cam, background=background, max_objects=max_objects, **kwargs)
     return decode_modalities(out, semantic_colors)
 
 
@@ -86,12 +95,28 @@ def render_chunk(
     cams: CameraBatch,
     semantic_colors: torch.Tensor,
     background=(0.0, 0.0, 0.0),
+    max_objects: int | None = None,
+    rasterize_fn=None,
+    **kwargs,
 ) -> FrameDataPoints:
-    """``render_frame`` of C cameras in one pass (``rasterize_chunk``):
-    data points with a leading [C] axis.  ``scene`` is one posed scene (a
-    static chunk) or a scene posed C ways (a dynamic chunk)."""
-    out = rasterize_chunk(scene, cams, background=background,
-                          max_objects=semantic_colors.shape[0] + 1)
+    """``render_frame`` of C cameras: data points with a leading [C] axis.
+    ``scene`` is one posed scene (a static chunk) or a scene posed C ways
+    (a dynamic chunk).  With ``rasterize_fn`` None the chunk renders in one
+    pass (``rasterize_chunk``: one binning host read and one forward
+    launch); a given ``rasterize_fn`` renders each frame of the chunk in
+    turn, as the reference's ``lax.map`` does, and the frames are stacked."""
+    if max_objects is None:
+        max_objects = semantic_colors.shape[0] + 1
+    if rasterize_fn is None:
+        out = rasterize_chunk(scene, cams, background=background, max_objects=max_objects)
+    else:
+        posed = scene.xyz.dim() == 3
+        frames = [
+            rasterize_fn(scene.pose_frame(j) if posed else scene, cam, background=background,
+                         max_objects=max_objects, **kwargs)
+            for j, cam in enumerate(cams.cameras)
+        ]
+        out = RenderOutputs(*(torch.stack(field) for field in zip(*frames)))
     return decode_modalities(out, semantic_colors)
 
 

@@ -8,9 +8,13 @@ the same gate on a caller's scene and backend:
     report = compare_backends(scene, cam, max_objects=8)
     assert report["pass_40db"]
 
-The port's fast backends are ``"cuda"`` (``rasterize``: the tile compositor
-kernel, its plain version on the CPU) and ``"sharded"`` (the splat-sharded
-render over ``mesh=``).
+The backends are the reference's ``"auto"`` (the default), ``"pallas"``
+and ``"tiled"``, and the port's ``"cuda"`` and ``"sharded"``: ``"auto"``,
+``"pallas"`` and ``"cuda"`` are ``rasterize`` (the tile compositor kernel on
+the card, its plain version on the CPU, as the tensors' device decides),
+``"tiled"`` is ``ops.rasterize_tiled.rasterize_tiled`` (the same compositor
+on bins capped at ``max_per_tile``) and ``"sharded"`` the splat-sharded
+render over ``mesh=``.  The report names ``"auto"`` as ``"cuda"``.
 """
 
 from __future__ import annotations
@@ -56,18 +60,23 @@ def compare_outputs(ref, out) -> dict:
 def compare_backends(
     scene: GaussianCloud,
     cam: Camera,
-    backend: str = "cuda",
+    backend: str = "auto",
     max_objects: int = 8,
     background=(0.0, 0.0, 0.0),
     **backend_kwargs,
 ) -> dict:
     """Render ``scene`` with the golden compositor and the chosen fast
-    backend; return per-channel PSNR and mask agreement.  ``"sharded"``
+    backend; return per-channel PSNR and mask agreement.  ``"tiled"``
+    takes ``rasterize_tiled``'s options (``max_per_tile=``), ``"sharded"``
     takes ``mesh=`` (and ``rasterize_splat_sharded``'s other options)."""
     from pegasus_tpu_torch.ops.rasterize_ref import rasterize_reference
 
-    if backend == "cuda":
+    if backend == "auto":
+        backend = "cuda"
+    if backend in ("cuda", "pallas"):
         from pegasus_tpu_torch.ops.rasterize_cuda import rasterize as fast
+    elif backend == "tiled":
+        from pegasus_tpu_torch.ops.rasterize_tiled import rasterize_tiled as fast
     elif backend == "sharded":
         from pegasus_tpu_torch.parallel.sharded_render import rasterize_splat_sharded as fast
     else:

@@ -40,7 +40,7 @@ from __future__ import annotations
 
 import time
 from pathlib import Path
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -52,7 +52,6 @@ from pegasus_tpu_torch.gs.ply import load_gs_ply
 from pegasus_tpu_torch.io import colmap as colmap_io
 from pegasus_tpu_torch.io.bop_writer import BOPDatasetWriter, write_models
 from pegasus_tpu_torch.io.mesh import load_mesh
-from pegasus_tpu_torch.ops.rasterize_cuda import refuse_rasterize_fn
 from pegasus_tpu_torch.ops.render import (encode_frame, pack_frame_bytes,
                                           render_chunk, unpack_frame_bytes)
 from pegasus_tpu_torch.parallel.mesh import Mesh, make_mesh, map_lanes
@@ -191,11 +190,13 @@ def _drop_batch(setups, n_steps: int, device):
     return out
 
 
-def _render_scene(lane, setup, frame_steps, static_pose: bool, background, frame_chunk: int):
+def _render_scene(lane, setup, frame_steps, static_pose: bool, background, frame_chunk: int,
+                  rasterize_fn=None, rasterize_kwargs=None):
     """One scene's frames on its lane, in chunks of ``frame_chunk`` frames
     (the tail chunk just shorter): per chunk one pose of the scene (once
     per scene for a static one, pose by pose for a dynamic chunk), one
-    ``render_chunk`` -> ``encode_frame`` -> ``pack_frame_bytes`` over a
+    ``render_chunk`` (with ``rasterize_fn`` and its keywords) ->
+    ``encode_frame`` -> ``pack_frame_bytes`` over a
     slice of the scene's ``CameraBatch``, and one copy of the packed chunk
     into the scene's pinned host buffer on the lane's stream.  Every frame
     has the bits it has in a chunk of one.  Returns (packed [F, H, W, C]
@@ -230,7 +231,8 @@ def _render_scene(lane, setup, frame_steps, static_pose: bool, background, frame
                     times_t, times_q, frame_steps[lo:hi], device=dev
                 )
                 scene = pose_scene(template, chunk_R, chunk_t)
-            frames = render_chunk(scene, cams[lo:hi], colors, background=background)
+            frames = render_chunk(scene, cams[lo:hi], colors, background=background,
+                                  rasterize_fn=rasterize_fn, **(rasterize_kwargs or {}))
             packed = pack_frame_bytes(encode_frame(frames))
             if packed_h is None:
                 packed_h = host_buffer(packed.shape[1:], packed.dtype)
@@ -252,14 +254,15 @@ def run_generation_sharded(
     obj_list: List[Asset],
     mesh: Mesh = None,
     rasterize_fn=None,
+    rasterize_kwargs: Optional[dict] = None,
 ) -> SceneStats:
     """Generate ``config.num_scenes`` scenes in mesh-sized batches.
     ``mesh=None`` is a 1-D 'scene' mesh with one lane per visible card.
-    Each lane renders its scene in chunks of ``config.frame_chunk`` frames.
-    ``rasterize_fn`` is the reference's keyword: the port renders with
-    ``rasterize_chunk`` (the forward kernel on the card) and accepts None
-    only."""
-    refuse_rasterize_fn(rasterize_fn)
+    Each lane renders its scene in chunks of ``config.frame_chunk`` frames:
+    with ``rasterize_fn=None`` one forward launch per chunk
+    (``rasterize_chunk``), else ``rasterize_fn(scene, cam, background=,
+    max_objects=, **rasterize_kwargs)`` per frame (the reference's default
+    off TPU is ``ops.rasterize_tiled.rasterize_tiled``)."""
     if mesh is None:
         mesh = make_mesh(axis_names=("scene",))
     lanes = mesh.lanes()
@@ -340,7 +343,7 @@ def run_generation_sharded(
             batch_lanes,
             lambda lane, setup: _render_scene(
                 lane, setup, frame_steps, static_pose, config.background,
-                config.frame_chunk,
+                config.frame_chunk, rasterize_fn, rasterize_kwargs,
             ),
             setups,
         )

@@ -27,7 +27,7 @@ import torch
 
 from pegasus_tpu_torch.camera import Camera, CameraBatch
 from pegasus_tpu_torch.device import DEFAULT_DEVICE, resolve_device
-from pegasus_tpu_torch.ops.rasterize_cuda import rasterize_chunk, refuse_rasterize_fn
+from pegasus_tpu_torch.ops.rasterize_cuda import rasterize_chunk
 from pegasus_tpu_torch.parallel.mesh import Lane, Mesh, lane_slices, map_lanes, to_device
 from pegasus_tpu_torch.physics import rigid_body as rb
 from pegasus_tpu_torch.physics.heightfield import Heightfield
@@ -100,17 +100,15 @@ def generate_scene_variants(
     ``template`` describe one scene; the drops are drawn from ``generator``
     (default: a CPU generator seeded with ``seed``).  Returns every output
     stacked over the variant axis, on ``device`` or, with ``mesh``, on the
-    mesh's first device (``device`` is not read then).  ``rasterize_fn``
-    and ``rasterize_kwargs`` are the reference's keywords: the port renders
-    with ``rasterize_chunk`` (the forward kernel on the card) and accepts
-    None (and no keywords) only.
+    mesh's first device (``device`` is not read then).  With
+    ``rasterize_fn=None`` the variants render in chunks of
+    ``VARIANT_CHUNK`` (``rasterize_chunk``: one forward launch per chunk);
+    a given ``rasterize_fn`` renders each variant as the reference calls
+    it, ``rasterize_fn(scene, cam, max_objects=, **rasterize_kwargs)``
+    (the reference's default off TPU is ``ops.rasterize_tiled``'s
+    ``rasterize_tiled`` at ``max_per_tile=512``).
     """
-    refuse_rasterize_fn(rasterize_fn)
-    if rasterize_kwargs:
-        raise ValueError(
-            f"rasterize_kwargs {sorted(rasterize_kwargs)}: this package renders with "
-            "ops.rasterize_cuda.rasterize_chunk and takes no keywords for it; pass None"
-        )
+    rasterize_kwargs = rasterize_kwargs or {}
     lanes = mesh.lanes() if mesh is not None else [Lane(resolve_device(device))]
     home = lanes[0].device
     if generator is None:
@@ -154,6 +152,12 @@ def generate_scene_variants(
         cams = CameraBatch.stack([camera] * chunk)
         outs = []
         with torch.no_grad():
+            if rasterize_fn is not None:
+                for v in range(n):
+                    scene = pose_scene(tmpl, body_R[v, :n_bodies], body_t[v, :n_bodies])
+                    out = rasterize_fn(scene, camera, max_objects=max_objects, **rasterize_kwargs)
+                    outs.append(tuple(getattr(out, name)[None].to(home) for name in RENDER_FIELDS))
+                return outs
             for lo in range(0, n, chunk):
                 hi = min(lo + chunk, n)
                 scene = pose_scene(tmpl, body_R[lo:hi, :n_bodies], body_t[lo:hi, :n_bodies])

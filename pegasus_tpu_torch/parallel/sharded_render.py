@@ -16,7 +16,11 @@ Each shard is composited by a selectable backend into the ``[H, W, 5 + 3K +
 2]`` payload, which is exactly the channel layout of the port's tile
 compositor (``ops/rasterize_cuda.py``): ``"cuda"`` bins the shard and
 launches the compositor kernel once (its plain torch version for CPU
-lanes); ``"golden"`` runs the per-pixel oracle and packs its outputs.  The
+lanes), and so does ``"pallas"``, the reference's name for its kernel
+backend; ``"tiled"`` caps the shard's bins at the reference's
+``max_per_tile`` default of 1024 entries per tile (``cap_bins``, the
+semantics of ``ops/rasterize_tiled.py``) before the same launch;
+``"golden"`` runs the per-pixel oracle and packs its outputs.  The
 payloads are brought to the first lane's device and combined by
 ``rasterize_cuda.over`` along a fixed pairwise tree, (0,1)(2,3) then
 (01,23) and so on: the tree of the reference's butterfly, so the grouping
@@ -33,14 +37,15 @@ import torch
 
 from pegasus_tpu_torch.camera import Camera
 from pegasus_tpu_torch.gs.cloud import GaussianCloud
-from pegasus_tpu_torch.ops.binning import bin_splats
+from pegasus_tpu_torch.ops.binning import bin_splats, cap_bins
 from pegasus_tpu_torch.ops.projection import ProjectedGaussians, project_gaussians
 from pegasus_tpu_torch.ops.rasterize_cuda import (composite_tiles, num_channels,
                                                    outputs_from_channels, over)
 from pegasus_tpu_torch.ops.rasterize_ref import RenderOutputs, rasterize_projected
 from pegasus_tpu_torch.parallel.mesh import Mesh, lane_slices, map_lanes, to_device, tree_map
 
-BACKENDS = ("golden", "cuda")
+BACKENDS = ("golden", "cuda", "pallas", "tiled")
+TILED_MAX_PER_TILE = 1024  # the reference's "tiled" shards composite at rasterize_projected_tiled's default
 
 
 def identity_payload(width: int, height: int, k: int, device) -> torch.Tensor:
@@ -54,8 +59,9 @@ def identity_payload(width: int, height: int, k: int, device) -> torch.Tensor:
 def _check_backend(backend: str) -> None:
     if backend not in BACKENDS:
         raise ValueError(
-            f"unknown backend {backend!r}: the port has {BACKENDS[0]!r} (the per-pixel "
-            f"oracle) and {BACKENDS[1]!r} (the tile compositor kernel)"
+            f"unknown backend {backend!r}: the port has 'golden' (the per-pixel oracle), "
+            "'cuda' and 'pallas' (the tile compositor kernel) and 'tiled' (the kernel on "
+            f"bins capped at {TILED_MAX_PER_TILE} entries per tile)"
         )
 
 
@@ -66,8 +72,10 @@ def _local_render(backend: str, proj_shard: ProjectedGaussians, width: int, heig
     dev = proj_shard.mean_x.device
     if proj_shard.mean_x.shape[0] == 0:
         return identity_payload(width, height, k, dev)
-    if backend == "cuda":
+    if backend != "golden":
         bins = bin_splats(proj_shard, width, height)
+        if backend == "tiled":
+            bins = cap_bins(bins, TILED_MAX_PER_TILE)
         return composite_tiles(bins, width, height, k)
 
     out = rasterize_projected(
@@ -142,8 +150,9 @@ def rasterize_splat_sharded(
     depth-contiguous segment, and the ordered combine reproduces sequential
     compositing up to the grouping of the float32 terms.  The result lies on
     the first lane's device.  ``backend`` is ``"cuda"`` (default: the tile
-    compositor, one kernel launch per shard) or ``"golden"``; ``chunk`` is
-    the golden compositor's.
+    compositor, one kernel launch per shard; ``"pallas"`` is the same),
+    ``"tiled"`` (the same launch on capped bins) or ``"golden"``; ``chunk``
+    is the golden compositor's.
 
     The reference asks for a splat count that is a multiple of the axis
     size and for a power-of-two axis: the first is ``shard_map``'s equal

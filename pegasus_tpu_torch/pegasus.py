@@ -29,15 +29,21 @@ Differences from the reference, all deliberate:
   * the tail chunk is just shorter: nothing is compiled for a chunk size,
     so the reference's padding to a full chunk is not needed, and its
     ``readback_bytes`` counts no padding frames;
+  * ``rasterize_fn=None`` renders with the forward kernel (``rasterize``,
+    one launch per chunk; its plain version on the CPU), where the
+    reference picks its Pallas kernel on TPU and its tiled renderer
+    elsewhere.  A given ``rasterize_fn`` (``ops.rasterize_tiled``'s
+    ``rasterize_tiled``, the golden ``rasterize_reference``, ...) renders
+    every frame of every chunk, called as the reference calls it, with the
+    port's own ``rasterize_kwargs`` added; the GUI renders with the same
+    function;
   * ``publish2gui`` answers a pending SIBR viewer request once per chunk,
-    as the reference does, with the chunk's last pose; the GUI renders with
-    ``ops.rasterize_cuda.rasterize`` (the forward kernel on the card), and
-    ``rasterize_fn`` takes only ``None``;
+    as the reference does, with the chunk's last pose;
   * the GUI drops its connection on socket and protocol errors only: any
     other error, a failed kernel launch among them, propagates (the
     reference drops the connection on any exception);
-  * the XLA compile cache is not ported (nothing to cache: torch runs
-    eagerly).
+  * ``enable_compilation_cache`` is the kernels' build cache
+    (``utils/compile_cache.py``), not XLA's.
 """
 
 from __future__ import annotations
@@ -57,7 +63,6 @@ from pegasus_tpu_torch.io import colmap as colmap_io
 from pegasus_tpu_torch.io.bop_writer import BOPDatasetWriter
 from pegasus_tpu_torch.io.mesh import load_mesh
 from pegasus_tpu_torch.physics.engine import MAX_BODIES, PhysicsEngine
-from pegasus_tpu_torch.ops.rasterize_cuda import refuse_rasterize_fn
 from pegasus_tpu_torch.ops.render import (encode_frame, pack_frame_bytes,
                                           render_chunk, render_frame, rle_max_runs,
                                           rle_pack_chunk, rle_unpack_chunk,
@@ -66,6 +71,7 @@ from pegasus_tpu_torch.scene.camera_trajectory import create_camera_trajectory
 from pegasus_tpu_torch.scene.composition import (SceneTemplate, pose_scene,
                                                  poses_from_trajectory_step)
 from pegasus_tpu_torch.scene.trajectory import Trajectory
+from pegasus_tpu_torch.utils.compile_cache import enable_compilation_cache
 from pegasus_tpu_torch.utils.colors import generate_colors
 
 
@@ -104,8 +110,12 @@ class PEGASUS:
         freeze_dynamic_gt_pose: bool = False,  # reference quirk: dynamic
         # scene_gt keeps the t=0 pose for every frame
         device="cuda",
+        rasterize_kwargs: Optional[dict] = None,  # more keywords for a given rasterize_fn
     ):
-        refuse_rasterize_fn(rasterize_fn)
+        # the kernels' build cache, where the reference enables XLA's
+        enable_compilation_cache()
+        self.rasterize_fn = rasterize_fn
+        self.rasterize_kwargs = dict(rasterize_kwargs or {})
         self.frame_chunk = max(1, int(frame_chunk))
         self.compact_readback = compact_readback
         self.device = resolve_device(device)
@@ -318,7 +328,8 @@ class PEGASUS:
             return
         img_bytes = None
         if cam is not None:
-            frame = render_frame(scene, cam, self._semantic_colors_dev, background=self.background)
+            frame = render_frame(scene, cam, self._semantic_colors_dev, background=self.background,
+                                 rasterize_fn=self.rasterize_fn, **self.rasterize_kwargs)
             img_bytes = ng.frame_bytes(frame.rgb)
         try:
             ng.send(img_bytes, self.dataset_path)
@@ -476,7 +487,8 @@ class PEGASUS:
             if dynamic:
                 scene = pose_scene(self.template, body_Rs[lo:hi], body_ts[lo:hi])
             enc = encode_frame(render_chunk(
-                scene, cams[lo:hi], self._semantic_colors_dev, background=self.background
+                scene, cams[lo:hi], self._semantic_colors_dev, background=self.background,
+                rasterize_fn=self.rasterize_fn, **self.rasterize_kwargs,
             ))
             sparse_dev = None
             if compact:

@@ -21,11 +21,15 @@ Kept from the JAX package:
     the moments of stale slots and keeps the count.
 
 The render is ``ops/composite_vjp.py``: the CUDA compositor (K2') and its
-backward kernel (K3) on the card, their plain torch versions on the CPU.
+backward kernel (K3) on the card, their plain torch versions on the CPU,
+over exact bins (``backend="auto"`` / ``"pallas"``) or over bins capped at
+``max_per_tile`` entries per tile (``backend="tiled"``, the semantics of
+the reference's tiled renderer, ``ops/rasterize_tiled.py``).
 
 ``GSTrainer`` takes the reference's parameters in the reference's order,
-then ``device``; ``render_fn`` must be None, as ``rasterize_fn`` of the
-other entry points.  Dropped: ``enable_compilation_cache`` (XLA's).  Data-parallel training
+then ``device``; it keeps ``render_fn`` as the reference does (and reads it
+no more than the reference does), and enables the kernels' build cache
+(``utils/compile_cache.py``) where the reference enables XLA's.  Data-parallel training
 (``make_dp_train_step``, ``train(mesh=)``) runs a camera batch over the lanes
 of a ``parallel.mesh.Mesh``, one compositor pair per camera.  The wrapper's
 ``gui=True`` serves the cloud in training to a SIBR viewer
@@ -38,6 +42,7 @@ connection.
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from pathlib import Path
 from typing import Optional
 
@@ -49,14 +54,16 @@ from pegasus_tpu_torch.camera import Camera
 from pegasus_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from pegasus_tpu_torch.gs.cloud import GaussianCloud
 from pegasus_tpu_torch.gs.knn import mean_knn_dist2
-from pegasus_tpu_torch.ops.binning import bin_splats
+from pegasus_tpu_torch.ops.binning import bin_splats, cap_bins
 from pegasus_tpu_torch.ops.composite_vjp import composite_tiles_diff
 from pegasus_tpu_torch.ops.projection import project_gaussians
-from pegasus_tpu_torch.ops.rasterize_cuda import outputs_from_channels, refuse_rasterize_fn
+from pegasus_tpu_torch.ops.rasterize_cuda import outputs_from_channels
+from pegasus_tpu_torch.ops.rasterize_tiled import rasterize_tiled
 from pegasus_tpu_torch.parallel.mesh import lane_slices, map_lanes, to_device
 from pegasus_tpu_torch.training.losses import gs_loss
 from pegasus_tpu_torch.utils import quaternion as quat
 from pegasus_tpu_torch.utils import sh as shlib
+from pegasus_tpu_torch.utils.compile_cache import enable_compilation_cache
 
 GROUPS = ("xyz", "f_dc", "f_rest", "opacity", "scale", "rot")
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-15
@@ -167,25 +174,37 @@ class GSTrainer:
         backend: str = "auto",
         device=DEFAULT_DEVICE,
     ):
-        """backend: ``"auto"`` or ``"pallas"``; both train through the
-        compositor pair (K2' and K3, the counterpart of the reference's
-        Pallas pair; their plain versions on the CPU), so ``self.backend``
-        is ``"pallas"``.  The reference's ``"tiled"`` (its XLA rasterizer,
-        not ported) and ``"pallas_interpret"`` (whose counterpart is
-        ``device="cpu"``) raise.  ``max_per_tile`` is kept and ignored:
-        exact binning has no per-tile cap."""
-        refuse_rasterize_fn(render_fn)
-        if backend not in ("auto", "pallas"):
+        """backend: every one trains through the compositor pair (K2' and
+        K3, the counterpart of the reference's Pallas pair; their plain
+        versions on the CPU).  ``"pallas"`` and ``"auto"`` composite every
+        entry (``self.backend`` is ``"pallas"``: the card is the TPU's
+        counterpart, where the reference's ``"auto"`` picks ``"tiled"`` on
+        any other device); ``"tiled"`` composites each tile's first
+        ``max_per_tile`` entries (``cap_bins``), the reference's tiled
+        renderer, and like the reference refuses ``densify_abs_grad``.
+        ``"pallas_interpret"`` raises: its counterpart is ``device="cpu"``.
+        ``render_fn`` None is stored as the reference stores it,
+        ``partial(rasterize_tiled, max_objects=1, max_per_tile=1024)``."""
+        enable_compilation_cache()
+        if backend not in ("auto", "pallas", "tiled"):
             raise ValueError(
-                f"backend={backend!r}: this package takes 'auto' or 'pallas' (its CUDA "
-                "compositor pair); the XLA tiled rasterizer is not ported, and the "
-                "counterpart of 'pallas_interpret' is device='cpu'"
+                f"backend={backend!r}: this package takes 'auto', 'pallas' or 'tiled' (its "
+                "CUDA compositor pair, over exact or capped bins); the counterpart of "
+                "'pallas_interpret' is device='cpu'"
             )
+        if config.densify_abs_grad and backend == "tiled":
+            raise ValueError(
+                "densify_abs_grad needs the pallas backend (per-entry "
+                "cotangents come from its structure-aware VJP)"
+            )
+        if render_fn is None:
+            render_fn = partial(rasterize_tiled, max_objects=1, max_per_tile=1024)
+        self.render_fn = render_fn
         self.config = config
         self.width = width
         self.height = height
         self.max_per_tile = max_per_tile
-        self.backend = "pallas"
+        self.backend = "tiled" if backend == "tiled" else "pallas"
         self.device = resolve_device(device)
         self.background = tuple(float(b) for b in background)
         c = config
@@ -245,6 +264,8 @@ class GSTrainer:
             proj = self._project_with_offset(state.cloud.replace(**params), cam, offset, active_deg)
         with record_function("train_step/bin"):
             bins = bin_splats(proj, self.width, self.height)
+            if self.backend == "tiled":
+                bins = cap_bins(bins, self.max_per_tile)
         with record_function("train_step/composite"):
             out = composite_tiles_diff(bins, self.width, self.height, 1, sink)
             out = outputs_from_channels(out, self.background, 1)

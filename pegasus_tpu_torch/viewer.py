@@ -2,8 +2,10 @@
 
 Port of ``pegasus_tpu/viewer.py``: ``orbit_cameras`` is the same code
 (building this package's cameras on ``device``), and the renders go
-through ``ops.rasterize_cuda.rasterize`` (the forward kernel on the card)
-where the JAX package defaults to ``rasterize_tiled``.  ``cv2`` and ``PIL``
+through ``rasterize_fn`` when one is given, called as the reference calls
+it, else through ``ops.rasterize_cuda.rasterize`` (the forward kernel on
+the card) where the JAX package defaults to ``rasterize_tiled``.  Either
+renders the cloud with its object ids set to 0.  ``cv2`` and ``PIL``
 are imported by the function that needs them; a missing one raises
 ``ImportError`` naming the package.
 
@@ -30,7 +32,7 @@ import torch
 from pegasus_tpu_torch.camera import Camera
 from pegasus_tpu_torch.device import DEFAULT_DEVICE
 from pegasus_tpu_torch.gs.cloud import GaussianCloud
-from pegasus_tpu_torch.ops.rasterize_cuda import rasterize, refuse_rasterize_fn
+from pegasus_tpu_torch.ops.rasterize_cuda import rasterize
 
 
 def _need(package: str, what: str):
@@ -43,10 +45,14 @@ def _need(package: str, what: str):
         raise ImportError(f"{what} needs the {package!r} package, which is not installed") from e
 
 
-def render_rgb_u8(cloud, cam, background) -> np.ndarray:
-    """[H, W, 3] uint8 render of ``cloud`` from ``cam``, on the host."""
+def render_rgb_u8(cloud, cam, background, rasterize_fn=None) -> np.ndarray:
+    """[H, W, 3] uint8 render of ``cloud`` from ``cam``, on the host:
+    ``rasterize_fn(cloud, cam, background=)``, or ``rasterize`` at K = 1."""
     with torch.no_grad():
-        rgb = rasterize(cloud, cam, background=background, max_objects=1).rgb
+        if rasterize_fn is None:
+            rgb = rasterize(cloud, cam, background=background, max_objects=1).rgb
+        else:
+            rgb = rasterize_fn(cloud, cam, background=background).rgb
         return torch.clamp(rgb * 255, 0, 255).to(torch.uint8).cpu().numpy()
 
 
@@ -94,9 +100,7 @@ def render_turntable(
 ) -> str:
     """Turntable mp4 of one asset (reference:
     object_visualization.py:565-629); renders on the cloud's device with
-    ``rasterize``, the cloud's ids set to 0 and K = 1.  ``rasterize_fn``
-    takes only ``None``, as in ``PEGASUS``."""
-    refuse_rasterize_fn(rasterize_fn)
+    ``rasterize_fn``, or ``rasterize`` at K = 1, the cloud's ids set to 0."""
     cv2 = _need("cv2", "render_turntable")
 
     cloud = cloud.with_object_id(0)
@@ -112,7 +116,7 @@ def render_turntable(
     fourcc = cv2.VideoWriter_fourcc(*"mp4v")
     writer = cv2.VideoWriter(str(output_path), fourcc, fps, (width, height))
     for cam in cams:
-        rgb = render_rgb_u8(cloud, cam, background)
+        rgb = render_rgb_u8(cloud, cam, background, rasterize_fn)
         writer.write(rgb[:, :, ::-1])
     writer.release()
     return str(output_path)
@@ -131,10 +135,9 @@ def serve_viewer(
     """Minimal live viewer: http://host:port shows the scene; arrow keys
     orbit, +/- zooms.  Stands in for the SIBR network_gui socket protocol
     (reference: pegasus.py:84-86, 249-279) with plain HTTP; frames are
-    JPEGs, rendered with ``rasterize`` (``rasterize_fn`` takes only
-    ``None``).  ``blocking=False`` serves from a daemon thread and returns
-    the server (``shutdown()`` stops it)."""
-    refuse_rasterize_fn(rasterize_fn)
+    JPEGs, rendered with ``rasterize_fn``, or ``rasterize`` at K = 1.
+    ``blocking=False`` serves from a daemon thread and returns the server
+    (``shutdown()`` stops it)."""
     import io
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
@@ -175,7 +178,7 @@ refresh();
                     center=center, radius=r, elevation_deg=el,
                     n_views=360, width=width, height=height, device=cloud.device,
                 )
-                rgb = render_rgb_u8(cloud, cams[int(az) % 360], background)
+                rgb = render_rgb_u8(cloud, cams[int(az) % 360], background, rasterize_fn)
                 buf = io.BytesIO()
                 Image.fromarray(rgb).save(buf, "JPEG", quality=85)
                 data = buf.getvalue()

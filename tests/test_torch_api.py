@@ -81,10 +81,6 @@ DEVIATIONS = {
                             "(csrc/composite_tiles.cu; ROADMAP queue 2)",
     "ops.pallas_vjp": "the Pallas custom VJP (K2'/K3); its counterpart is ops.composite_vjp "
                       "(csrc/composite_tiles_bwd.cu; ROADMAP queue 2)",
-    "ops.rasterize_tiled": "not ported, by decision: the golden compositor and K1 take its "
-                           "role, and it truncates at max_per_tile (ROADMAP queue 1)",
-    "utils.compile_cache": "not ported, by decision: XLA's compile cache; torch runs eagerly "
-                           "(ROADMAP queue 1)",
     # binning and rendering
     "ops.binning.bin_splats": "exact binning drops the TPU knobs: static-cap buckets, entry_cap, "
                               "pack8, lane_pad (ROADMAP queue 3, deliberate deviations)",
@@ -97,11 +93,9 @@ DEVIATIONS = {
     "ops.render.FrameEncoded": "depth_mm is int32 in [0, 65535] where the reference's "
                                "depth_mm_u16 is uint16: torch lacks uint16 arithmetic "
                                "(ROADMAP queue 3, deliberate deviations)",
-    "ops.render.render_frame": "takes no max_objects / rasterize_fn / **kwargs: one renderer, "
-                               "K from the scene (ROADMAP queue 3, deliberate deviations)",
-    "ops.validate.compare_backends": "backends 'cuda' (the default) and 'sharded'; the "
-                                     "reference's 'auto' / 'pallas' / 'tiled' are its TPU "
-                                     "and XLA renderers (ROADMAP queue 3, deliberate deviations)",
+    "ops.render.render_frame": "rasterize_fn=None is the forward kernel, where the reference's "
+                               "default is its golden compositor (ROADMAP queue 3, deliberate "
+                               "deviations)",
     # scale-out
     "parallel.mesh.shard_batch": "split_batch takes its place: one tree per lane where the "
                                  "reference returns one sharded array (ROADMAP queue 3, R2)",
@@ -405,15 +399,17 @@ def test_trainer_binds_the_reference_positions(_single_step_setup):
 
 
 def test_trainer_backend_and_render_fn():
+    """"auto" and "pallas" train uncapped, "tiled" at ``max_per_tile``
+    (tests/test_torch_tiled.py holds its step against the reference's);
+    "pallas_interpret" raises; a given ``render_fn`` is kept as given."""
     config = TrainConfig(capacity=64)
-    for backend in ("auto", "pallas"):
+    for backend, want in (("auto", "pallas"), ("pallas", "pallas"), ("tiled", "tiled")):
         trainer = GSTrainer(config, backend=backend, max_per_tile=64, device="cpu")
-        assert (trainer.backend, trainer.max_per_tile) == ("pallas", 64)
-    for backend in ("tiled", "pallas_interpret"):
-        with pytest.raises(ValueError, match="'auto' or 'pallas'"):
-            GSTrainer(config, backend=backend, device="cpu")
-    with pytest.raises(ValueError, match="rasterize_fn"):
-        GSTrainer(config, render_fn=lambda *a, **k: None, device="cpu")
+        assert (trainer.backend, trainer.max_per_tile) == (want, 64)
+    with pytest.raises(ValueError, match="'auto', 'pallas' or 'tiled'"):
+        GSTrainer(config, backend="pallas_interpret", device="cpu")
+    render_fn = lambda *a, **k: None  # noqa: E731
+    assert GSTrainer(config, render_fn=render_fn, device="cpu").render_fn is render_fn
 
 
 def test_simulate_takes_the_reference_positions():

@@ -17,8 +17,9 @@ chunk.  Every frame must get the bits that rendering it alone gives, so:
 * host reads are one per chunk.
 
 Then the repairs: ``run_generation_sharded`` and ``generate_scene_variants``
-take the reference's parameters in the reference's order (``rasterize_fn``
-None only; ``rasterize_kwargs`` None or empty), ``pegasus_tpu_torch.parallel``
+take the reference's parameters in the reference's order (a given
+``rasterize_fn`` renders each frame or variant, with ``rasterize_kwargs``),
+``pegasus_tpu_torch.parallel``
 exports the reference's names (``split_batch`` for ``shard_batch``), and
 ``utils/sh.py`` has the Inria spellings ``RGB2SH`` / ``SH2RGB``.  Against the
 JAX package through the chunk path:
@@ -226,12 +227,19 @@ def test_variant_keywords_accepted_as_none_and_refused_otherwise():
     got = scene_batch.generate_scene_variants(template, params, cam, 3, 4, (0.25, 0.45), (0.15, 0.15),
                                               1, mesh, 4, None, {})
     assert all(torch.equal(a, b) for a, b in zip(want, got))
-    with pytest.raises(ValueError, match="rasterize_fn"):
-        scene_batch.generate_scene_variants(template, params, cam, 3, mesh=mesh, rasterize_fn=rasterize,
-                                            **kwargs)
-    with pytest.raises(ValueError, match="rasterize_kwargs"):
-        scene_batch.generate_scene_variants(template, params, cam, 3, mesh=mesh,
-                                            rasterize_kwargs={"entry_cap": 64}, **kwargs)
+    # a given rasterize_fn renders each variant, called as the reference
+    # calls it; rasterize of one variant has the bits of the chunk launch
+    calls = []
+
+    def counted(scene, cam, max_objects, **kw):
+        calls.append((max_objects, kw))
+        return rasterize(scene, cam, max_objects=max_objects, **kw)
+
+    given = scene_batch.generate_scene_variants(template, params, cam, 3, mesh=mesh, seed=1,
+                                                rasterize_fn=counted,
+                                                rasterize_kwargs={"scaling_modifier": 1.0}, **kwargs)
+    assert calls == [(4, {"scaling_modifier": 1.0})] * 3
+    assert all(torch.equal(a, b) for a, b in zip(want, given))
 
 
 def test_sharded_keywords_accepted_as_none_and_refused_otherwise(root, tmp_path):
@@ -242,8 +250,19 @@ def test_sharded_keywords_accepted_as_none_and_refused_otherwise(root, tmp_path)
     # landing elsewhere would leave mesh=None, a mesh over the cards, which raises here
     stats = run_generation_sharded(cfg, [env], objs, make_mesh(devices=["cpu"]), None)
     assert [r["frames"] for r in stats.records] == [2]
-    with pytest.raises(ValueError, match="rasterize_fn"):
-        run_generation_sharded(cfg, [env], objs, make_mesh(devices=["cpu"]), rasterize)
+    # a given rasterize_fn renders every frame; rasterize of one frame has
+    # the bits of the chunk launch, so the tree is the same
+    calls = []
+
+    def counted(scene, cam, **kw):
+        calls.append(kw["max_objects"])
+        return rasterize(scene, cam, **kw)
+
+    given = config(root, tmp_path / "given", "static", 8, num_scenes=1, num_cameras=1,
+                   num_camera_interpolation_steps=2)
+    run_generation_sharded(given, [env], objs, make_mesh(devices=["cpu"]), counted, {})
+    assert len(calls) == 2
+    assert tree(tmp_path / "given") == tree(tmp_path / "positional")
 
 
 def test_parallel_exports_the_reference_names():

@@ -13,6 +13,7 @@ writes the same bytes as one without.
 """
 
 import filecmp
+import io
 import json
 import os
 import socket
@@ -36,6 +37,7 @@ from pegasus_tpu_torch.assets.registry import Asset
 from pegasus_tpu_torch.camera import Camera
 from pegasus_tpu_torch.gs.ply import save_gs_ply
 from pegasus_tpu_torch.interop import CAMERA_FIELDS, camera_from_numpy
+from pegasus_tpu_torch.ops.rasterize_cuda import rasterize
 from pegasus_tpu_torch.pegasus import PEGASUS
 from pegasus_tpu_torch.testing import build_synthetic_dataset, make_box_cloud
 from pegasus_tpu_torch.viewer import orbit_cameras, render_turntable, serve_viewer
@@ -303,11 +305,30 @@ def test_turntable_and_live_viewer(tmp_path):
         server.shutdown()
 
 
-def test_viewer_refuses_rasterize_fn():
-    """The viewer's entry points take the reference's ``rasterize_fn`` only
-    as None, as ``PEGASUS`` does: they render with ``rasterize``."""
+def test_viewer_refuses_rasterize_fn(tmp_path):
+    """The viewer's entry points take the reference's ``rasterize_fn``, as
+    ``PEGASUS`` does: a given function is the one that renders, called as
+    the reference calls it, ``rasterize_fn(cloud, cam, background=)``."""
     cloud = make_box_cloud(np.random.default_rng(3), n=16, device=CPU)
-    with pytest.raises(ValueError, match="rasterize_cuda.rasterize"):
-        render_turntable(cloud, "unused.mp4", rasterize_fn=object())
-    with pytest.raises(ValueError, match="rasterize_cuda.rasterize"):
-        serve_viewer(cloud, port=0, rasterize_fn=object(), blocking=False)
+    calls = []
+
+    def red(c, cam, background):
+        calls.append(background)
+        out = rasterize(c, cam, background=background, max_objects=1)
+        return out._replace(rgb=torch.zeros_like(out.rgb) + torch.tensor([1.0, 0.0, 0.0]))
+
+    path = render_turntable(cloud, str(tmp_path / "turn.mp4"), n_views=2, width=32, height=32,
+                            rasterize_fn=red)
+    assert Path(path).stat().st_size > 0 and calls == [(1.0, 1.0, 1.0)] * 2
+    server = serve_viewer(cloud, port=0, width=32, height=32, rasterize_fn=red, blocking=False)
+    try:
+        port = server.server_address[1]
+        jpg = urllib.request.urlopen(f"http://127.0.0.1:{port}/frame?az=30&el=20&r=0.8",
+                                     timeout=60).read()
+        from PIL import Image
+
+        rgb = np.asarray(Image.open(io.BytesIO(jpg)).convert("RGB")).astype(int)
+        assert abs(rgb[..., 0] - 255).max() <= 8 and rgb[..., 1:].max() <= 8  # the given red
+        assert len(calls) == 3
+    finally:
+        server.shutdown()

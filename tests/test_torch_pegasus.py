@@ -205,17 +205,30 @@ def test_refusals(recorded, tmp_path, monkeypatch):
 
 def test_reference_constructor_keywords(recorded, tmp_path):
     """The reference's ``frame_chunk`` is taken (frames per set of launches
-    and per readback: ``tests/test_torch_chunk.py``) and its
-    ``rasterize_fn`` only as None: anything else raises a ValueError naming
-    the renderer the port uses."""
-    root, _, _ = recorded
+    and per readback: ``tests/test_torch_chunk.py``) and so is its
+    ``rasterize_fn``: a given function is the one that renders every frame
+    (``tests/test_torch_tiled.py`` holds ``rasterize_tiled`` against the
+    reference's), with the port's ``rasterize_kwargs`` passed on."""
+    root, physics_file, env_name = recorded
     env, objs = _assets(root, Asset)
     cfg = _config(root, tmp_path, "static", "sequence")
     assert PEGASUS(gs_env_list=[env], gs_object_list=objs, device="cpu", **cfg, frame_chunk=8,
                    rasterize_fn=None).frame_chunk == 8
-    with pytest.raises(ValueError, match="rasterize_cuda.rasterize"):
-        PEGASUS(gs_env_list=[env], gs_object_list=objs, device="cpu", **cfg,
-                rasterize_fn=object())
+    calls = []
+
+    def white(cloud, cam, background, max_objects, **kwargs):
+        calls.append(kwargs)
+        out = rasterize(cloud, cam, background=background, max_objects=max_objects)
+        return out._replace(rgb=torch.ones_like(out.rgb))
+
+    pegasus = _run(PEGASUS(gs_env_list=[env], gs_object_list=objs, device="cpu", **cfg,
+                           frame_chunk=3, rasterize_fn=white, rasterize_kwargs={"tag": 1}),
+                   physics_file, env_name, "given")
+    assert pegasus.rasterize_fn is white
+    n_frames = len(pegasus.viewport_cam_list)
+    assert calls == [{"tag": 1}] * n_frames
+    rgbs = sorted((tmp_path / "given" / "train" / "000001" / "rgb").glob("*.png"))
+    assert len(rgbs) == n_frames and all((imageio.imread(p) == 255).all() for p in rgbs)
 
 
 def test_video_streams_when_asked(recorded, tmp_path):
