@@ -193,14 +193,35 @@ Phases, each of which fails the run (nonzero exit) on any miss:
    >= 40 dB, masks <= 0.5 % of pixels, depth within 1 mm on >= 99 % of
    covered pixels.  The phase's launches count in the kernels line.
 
+18. a crowded scene: one environment of 150,000 splats and 48 of the 51
+   roster objects (4,000 splats each) per scene, K = 49.  (a)
+   ``run_generation`` at 640x480 with every modality and ``frame_chunk``
+   8 over one static scene (10 cameras x 4 steps) and one dynamic scene (2
+   x 4), each with its own drop of 49 bodies: 6 forward launches for 48
+   frames, ``check_bop_dataset`` clean, 48 objects per frame in
+   ``scene_gt.json`` and 48 ``mask`` and 48 ``mask_visib`` PNGs per frame;
+   prints frames/s, launches per frame and the seconds per stage.  (b) On a
+   frame of the static scene, K1 and K3 at K = 49 and, with the ids folded
+   into 1 .. 32, at K = 33 against their plain versions at phase 3's and
+   phase 7's gates, each kernel twice bitwise equal; the same view at K = 7
+   (ids folded into 1 .. 6) for the times, K1 and K3 beside K = 49 with
+   their bounds; K1 at K = 64 on the 210k bench scene with its 60,000 box
+   splats relabelled 1 + i % 63 against its plain version and twice
+   bitwise; one K1 launch over 8 frames at K = 49 bitwise equal to the 8
+   single-frame launches.  (c) The static drop replayed over small assets
+   (20,000 + 48 x 500 splats), 4 frames written with
+   ``rasterize_fn=rasterize_reference`` against the kernel's: the golden
+   gates of phase 17.  The phase's generation launches count in the
+   kernels line.
+
 After phase 5 the compact-readback case runs the static replayed scene once
 more with and without ``compact_readback`` (chunks of 8): every PNG and JSON
 byte-identical; prints the bytes moved per frame both ways and frames/s.
 
 ``--from-phase N`` (N > 3) skips phases 3 to N - 1 while a later phase is
-worked on (12: the build, the compact-readback case and phases 12-17; 16:
-the build and phases 16-17; 17: the build and phase 17); such a run prints
-no result lines.  The last two lines of a
+worked on (12: the build, the compact-readback case and phases 12-18; 16:
+the build and phases 16-18; 17: the build and phases 17-18; 18: the build
+and phase 18); such a run prints no result lines.  The last two lines of a
 whole run are one JSON object for the kernels and one for the device; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -772,6 +793,9 @@ def chunk_kernel_check(data: Path, out: Path, device, card: str) -> dict:
 
     peg = scene_pegasus(data, out, "chunk_kernel", "static", 10, 4, device)
     k = len(peg.semantic_colors) + 1
+    drop = peg.trajectory.times_t
+    require(bool(np.isfinite(drop).all()) and float(np.abs(drop).max()) < 2.0,
+            f"the static drop left the scene: max |position| {float(np.abs(drop).max())} m")
     scene = pose_scene(peg.template, *peg._body_poses_at(peg._initial_step))
     cams = peg.viewport_cam_list[:8]
     bins = bin_splats(project_gaussians(scene, CameraBatch.stack(cams)), WIDTH, HEIGHT)
@@ -2579,12 +2603,43 @@ def tiled_training_case(device, card: str) -> dict:
     return {**launches, "tiled_ms": min(runs[1:3]), "auto_ms": min(runs[0], runs[3])}
 
 
+def golden_tree_gates(a_root: Path, b_root: Path) -> dict:
+    """A scene tree written with ``rasterize_fn=rasterize_reference``
+    (``a_root``) against one written with the kernel: the same files, JSON
+    bytes equal, rgb >= GOLDEN_GATE_DB, masks <= 0.5 % of pixels, depth within
+    1 mm on >= 99 % of covered pixels.  Returns the worst of each."""
+    import numpy as np
+
+    files = sorted(p.relative_to(a_root) for p in a_root.rglob("*") if p.is_file())
+    require(files == sorted(p.relative_to(b_root) for p in b_root.rglob("*") if p.is_file()),
+            "the golden and kernel trees hold other files")
+    worst = {"rgb_db": float("inf"), "mask": 0.0, "depth_1mm": 1.0}
+    for rel in files:
+        a, b = a_root / rel, b_root / rel
+        if rel.suffix != ".png":
+            require(a.read_bytes() == b.read_bytes(), f"{rel} differs between renderers")
+            continue
+        x, y = _read_png(a).astype(np.float64), _read_png(b).astype(np.float64)
+        kind = rel.parts[0]
+        if kind == "rgb":
+            mse = float(((x - y) ** 2).mean()) / 255.0**2
+            worst["rgb_db"] = min(worst["rgb_db"], float("inf") if mse == 0 else -10 * math.log10(mse))
+        elif kind == "depth":
+            covered = (x > 0) | (y > 0)
+            if covered.any():
+                worst["depth_1mm"] = min(worst["depth_1mm"], float((np.abs(x - y)[covered] <= 1).mean()))
+        else:
+            differ = (x != y).reshape(x.shape[0], x.shape[1], -1).any(-1).mean()
+            worst["mask"] = max(worst["mask"], float(differ))
+    require(worst["rgb_db"] >= GOLDEN_GATE_DB and worst["mask"] <= 0.005 and worst["depth_1mm"] >= 0.99,
+            f"rasterize_fn=rasterize_reference against None: {worst}")
+    return worst
+
+
 def renderer_choice_case(tmp: Path, data: Path, out: Path, device, card: str) -> int:
     """Phase 17 (c): ``PEGASUS(rasterize_fn=)`` with the tiled renderer on
     phase 5's static scene and with the golden compositor on a small scene
     beside ``rasterize_fn=None``; returns the K1 launches."""
-    import numpy as np
-
     from pegasus_tpu_torch.eval import check_bop_dataset
     from pegasus_tpu_torch.ops import rasterize_cuda
     from pegasus_tpu_torch.ops.rasterize_ref import rasterize_reference
@@ -2610,30 +2665,8 @@ def renderer_choice_case(tmp: Path, data: Path, out: Path, device, card: str) ->
     launches = rasterize_cuda.composite_tiles.launches
     require(golden["launches"] == 0 and kernel["launches"] == 1, (golden["launches"], kernel["launches"]))
 
-    a_root, b_root = out / "smoke_golden" / "train" / "000001", out / "smoke_golden_none" / "train" / "000001"
-    files = sorted(p.relative_to(a_root) for p in a_root.rglob("*") if p.is_file())
-    require(files == sorted(p.relative_to(b_root) for p in b_root.rglob("*") if p.is_file()),
-            "the golden and kernel trees hold other files")
-    worst = {"rgb_db": float("inf"), "mask": 0.0, "depth_1mm": 1.0}
-    for rel in files:
-        a, b = a_root / rel, b_root / rel
-        if rel.suffix != ".png":
-            require(a.read_bytes() == b.read_bytes(), f"{rel} differs between renderers")
-            continue
-        x, y = _read_png(a).astype(np.float64), _read_png(b).astype(np.float64)
-        kind = rel.parts[0]
-        if kind == "rgb":
-            mse = float(((x - y) ** 2).mean()) / 255.0**2
-            worst["rgb_db"] = min(worst["rgb_db"], float("inf") if mse == 0 else -10 * math.log10(mse))
-        elif kind == "depth":
-            covered = (x > 0) | (y > 0)
-            if covered.any():
-                worst["depth_1mm"] = min(worst["depth_1mm"], float((np.abs(x - y)[covered] <= 1).mean()))
-        else:
-            differ = (x != y).reshape(x.shape[0], x.shape[1], -1).any(-1).mean()
-            worst["mask"] = max(worst["mask"], float(differ))
-    require(worst["rgb_db"] >= GOLDEN_GATE_DB and worst["mask"] <= 0.005 and worst["depth_1mm"] >= 0.99,
-            f"rasterize_fn=rasterize_reference against None: {worst}")
+    worst = golden_tree_gates(out / "smoke_golden" / "train" / "000001",
+                              out / "smoke_golden_none" / "train" / "000001")
     print(f"renderer choice: PEGASUS(rasterize_fn=rasterize_tiled) {n} frames, {host['launches']} K1 "
           f"launches (one per frame), {n / host['wall_s']:.3f} frames/s with PNG writes, "
           f"check_bop_dataset clean; rasterize_fn=rasterize_reference on {n_small} frames of a "
@@ -2661,14 +2694,258 @@ def renderer_seam_phase(tmp: Path, data: Path, out: Path, device, card: str, k: 
             "backward": train["backward"], "render": render, "train": train}
 
 
+CROWD_OBJECTS = 48  # phase 18's objects per scene: K = 49
+CROWD_ENV_SPLATS = 150_000
+CROWD_OBJ_SPLATS = 4_000  # phase 15's roster objects
+# Phase 18's drop volume: 48 objects spawned in a roster environment's own
+# region (+-0.15 m, 0.25-0.45 m high) start deep inside each other and the
+# contact solver throws them kilometres away (the JAX package's engine does
+# the same); over +-0.3 m and 0.3-1.2 m they land in a pile within 310 steps.
+CROWD_DROP_REGION = (0.3, 0.3)
+CROWD_DROP_HEIGHT = (0.3, 1.2)
+
+
+def relabel_objects(cloud, k: int):
+    """``cloud`` with object ids folded into 1 .. K - 1 (id -> 1 + (id - 1)
+    % (K - 1); the environment stays 0): the same splats composited at
+    another K."""
+    oid = cloud.object_id
+    return cloud.replace(object_id=(oid - 1).remainder(k - 1).add(1).where(oid > 0, oid))
+
+
+def roster_replay(data: Path, out: Path, name: str, envs, objs, physics_file: Path, env_name: str,
+                  num_cameras: int, device, rasterize_fn=None):
+    """A static PEGASUS over roster assets replaying a recorded drop, set up
+    up to ``init_start_position``."""
+    from pegasus_tpu_torch.pegasus import PEGASUS
+
+    peg = PEGASUS(
+        dataset_path=str(data), env_dataset_path=str(data), urdf_asset_folder=str(data / "urdf"),
+        gs_env_list=envs, gs_object_list=objs, mode="static", camera_trajectory_mode="random",
+        render_height=HEIGHT, render_width=WIDTH, num_cameras=num_cameras, simulation_steps=SIM_STEPS,
+        num_camera_interpolation_steps=4, dataset_base_path=str(out), seed=3, QUIET=True,
+        device=device, frame_chunk=8, rasterize_fn=rasterize_fn,
+    )
+    peg.physics_file = str(physics_file)
+    peg.selected_env_name = env_name
+    peg.init(name, 1)
+    peg.init_start_position()
+    return peg
+
+
+def crowded_generation(data: Path, out: Path, envs, objs, device, card: str) -> dict:
+    """Phase 18 (a): ``run_generation`` over one static scene (10 x 4
+    frames) and one dynamic scene (2 x 4) of 48 objects each, with their
+    own drops; the forward kernel's launches counted over the two runs."""
+    from pegasus_tpu_torch.config import GenerationConfig
+    from pegasus_tpu_torch.eval import check_bop_dataset
+    from pegasus_tpu_torch.generate import run_generation
+    from pegasus_tpu_torch.ops import rasterize_cuda
+
+    name = "crowded"
+
+    def config(mode, num_scenes, num_cameras, seed):
+        return GenerationConfig(
+            dataset_path=str(data), env_dataset_path=str(data), urdf_asset_folder=str(data / "urdf"),
+            dataset_base_path=str(out), dataset_name=name, num_scenes=num_scenes,
+            min_num_objects=CROWD_OBJECTS, max_num_objects=CROWD_OBJECTS, mode=mode,
+            render_width=WIDTH, render_height=HEIGHT, num_cameras=num_cameras,
+            num_camera_interpolation_steps=4, camera_trajectory_mode="random",
+            render_data_points=list(MODALITIES), simulation_steps=SIM_STEPS, save_video=False,
+            seed=seed, frame_chunk=8,
+        )
+
+    rasterize_cuda.composite_tiles.launches = 0
+    t0 = time.perf_counter()
+    static = run_generation(config("static", 1, 10, 21), envs, objs, device=device)
+    dynamic = run_generation(config("dynamic", 2, 2, 22), envs, objs, device=device)
+    wall = time.perf_counter() - t0
+    launches = rasterize_cuda.composite_tiles.launches
+    records = static.records + dynamic.records
+    require([r["scene_id"] for r in records] == [1, 2] and [r["frames"] for r in records] == [40, 8],
+            records)
+    require(launches == 6, f"composite_tiles launched {launches} times for 48 frames in 6 chunks")
+    for rec in records:
+        require(rec["n_objects"] == CROWD_OBJECTS, rec)
+        # scene_gt holds 48 objects per frame, and each frame 48 mask and 48 mask_visib PNGs
+        check_bop_tree(out, name, rec["scene_id"], rec["frames"], CROWD_OBJECTS, n_models=len(objs))
+    report = check_bop_dataset(out, name)
+    require(report["ok"] and not report["errors"], report["errors"])
+    frames = sum(r["frames"] for r in records)
+    for rec, mode in zip(records, ("static", "dynamic")):
+        stages = {k: round(rec[f"t_{k}"], 4) for k in ("physics", "setup", "render", "finalize")}
+        print(f"crowded scene {mode} scene {rec['scene_id']}: {rec['frames']} frames, "
+              f"{rec['n_objects']} objects (K = {rec['n_objects'] + 1}), {rec['splats']} splats, "
+              f"{rec['seconds']:.3f} s ({rec['frames_per_s']:.3f} frames/s with physics, setup and "
+              f"PNG writes; {rec['frames'] / rec['t_render']:.3f} frames/s render + PNG writes); "
+              f"seconds {json.dumps(stages)} card={card}", flush=True)
+    print(f"crowded generation: {frames} frames, {launches} forward-kernel launches "
+          f"({launches / frames:.4f} per frame), {frames / wall:.3f} frames/s over both runs, "
+          f"check_bop_dataset clean card={card}", flush=True)
+    static_rec = records[0]
+    return {"launches": launches, "frames": frames, "wall_s": wall, "records": records,
+            "physics_file": out / name / "engine" / f"{static_rec['scene_id']:06d}_simulation_steps.json",
+            "env": static_rec["env"]}
+
+
+def crowded_kernel_checks(scene, cams, cloud_210k, device, card: str) -> dict:
+    """Phase 18 (b): K1 and K3 at K = 33 and 49 on a frame of the crowded
+    scene against their plain versions (and at K = 7 on the same view,
+    ids folded, for the times), each kernel twice bitwise; K1 at K = 64 on
+    the 210k bench scene with its box splats relabelled 1 + i % 63; one
+    launch over a chunk of 8 frames at K = 49 bitwise equal to the 8
+    single-frame launches."""
+    import torch
+
+    from pegasus_tpu_torch.camera import CameraBatch
+    from pegasus_tpu_torch.ops.binning import bin_splats
+    from pegasus_tpu_torch.ops.composite_vjp import composite_tiles_backward
+    from pegasus_tpu_torch.ops.projection import project_gaussians
+    from pegasus_tpu_torch.ops.rasterize_cuda import composite_tiles, num_channels
+
+    k_full = CROWD_OBJECTS + 1
+    cam = cams[0]
+    res = {}
+    for k in (7, 33, k_full):
+        view = scene if k == k_full else relabel_objects(scene, k)
+        bins = bin_splats(project_gaussians(view, cam), WIDTH, HEIGHT)
+        require(bins.max_object_id < k and (k != k_full or bins.max_object_id > 32),
+                f"K = {k}: largest object id in view {bins.max_object_id}")
+        res[k] = backward_vs_plain(f"crowded frame {WIDTH}x{HEIGHT} K={k}", bins, WIDTH, HEIGHT, k, card)
+        first, partials = composite_tiles(bins, WIDTH, HEIGHT, k, return_partials=True)
+        require(torch.equal(first, composite_tiles(bins, WIDTH, HEIGHT, k)),
+                f"K1 at K = {k}: two launches differ")
+        g = torch.randn((HEIGHT, WIDTH, num_channels(k)),
+                        generator=torch.Generator().manual_seed(k)).to(device)
+        grad = composite_tiles_backward(bins, g, first, partials, WIDTH, HEIGHT, k)
+        require(torch.equal(grad, composite_tiles_backward(bins, g, first, partials, WIDTH, HEIGHT, k)),
+                f"K3 at K = {k}: two launches differ")
+        del bins, first, partials, grad
+        torch.cuda.empty_cache()
+
+    # K = 64: the 210k bench scene's 60,000 box splats take the ids 1 + i % 63
+    oid = cloud_210k.object_id.clone()
+    box = torch.nonzero(oid > 0)[:, 0]
+    oid[box] = (1 + torch.arange(box.numel(), device=oid.device) % 63).to(oid.dtype)
+    bins = bin_splats(project_gaussians(cloud_210k.replace(object_id=oid), bench_cameras(device)["orbit"]),
+                      WIDTH, HEIGHT)
+    require(bins.max_object_id == 63, bins.max_object_id)
+    err_64 = forward_vs_plain(f"210k orbit {WIDTH}x{HEIGHT} K=64 (box splats 1 + i % 63)", bins, WIDTH, HEIGHT, 64)
+    require(torch.equal(composite_tiles(bins, WIDTH, HEIGHT, 64), composite_tiles(bins, WIDTH, HEIGHT, 64)),
+            "K1 at K = 64: two launches differ")
+    del bins
+    torch.cuda.empty_cache()
+
+    # one launch over 8 frames at K = 49 against the frames' own launches
+    chunk_cams = cams[:8]
+    bins = bin_splats(project_gaussians(scene, CameraBatch.stack(chunk_cams)), WIDTH, HEIGHT)
+    chunk = composite_tiles(bins, WIDTH, HEIGHT, k_full)
+    singles = [bin_splats(project_gaussians(scene, c), WIDTH, HEIGHT) for c in chunk_cams]
+    for f, one in enumerate(singles):
+        require(torch.equal(chunk[f], composite_tiles(one, WIDTH, HEIGHT, k_full)),
+                f"K = {k_full}: frame {f} of the chunk launch differs from its own launch")
+    chunk_ms = cuda_ms(lambda: composite_tiles(bins, WIDTH, HEIGHT, k_full), 10)
+    frames_ms = cuda_ms(lambda: [composite_tiles(b, WIDTH, HEIGHT, k_full) for b in singles], 10)
+    chunk_bound = compositor_bounds(bins, WIDTH, HEIGHT, k_full)["fwd"]
+    del bins, chunk, singles
+    torch.cuda.empty_cache()
+    a, b = res[7], res[k_full]
+    print(f"crowded K1/K3 at K = {k_full} against K = 7 on the same view (ids folded): "
+          f"K1 {b['fwd_ms']:.4f} ms (bound {b['fwd'][0]:.4f} ms, {b['fwd'][1]}) against "
+          f"{a['fwd_ms']:.4f} ms (bound {a['fwd'][0]:.4f} ms); K3 {b['ms']:.4f} ms (bound "
+          f"{b['bwd'][0]:.4f} ms, {b['bwd'][1]}) against {a['ms']:.4f} ms (bound {a['bwd'][0]:.4f} ms); "
+          f"K = 33: K1 {res[33]['fwd_ms']:.4f} ms, K3 {res[33]['ms']:.4f} ms; "
+          f"K1 over 8 frames at K = {k_full}: {chunk_ms:.4f} ms in one launch, {frames_ms:.4f} ms "
+          f"in 8 (bound {chunk_bound[0]:.4f} ms, {chunk_bound[1]}), bitwise equal card={card}", flush=True)
+    return {"k": res, "fwd_max_abs_err": max(err_64, *(r["fwd_max_abs_err"] for r in res.values())),
+            "err_64": err_64, "chunk_ms": chunk_ms, "frames_ms": frames_ms, "chunk_bound": chunk_bound}
+
+
+def crowded_golden_case(tmp: Path, out: Path, physics_file: Path, env_name: str, device,
+                        card: str) -> dict:
+    """Phase 18 (c): the static crowded drop replayed over small assets
+    (a 20,000-splat environment and 48 objects of 500: the golden costs
+    O(pixels x splats)), 4 frames written with ``rasterize_fn=
+    rasterize_reference`` and with the kernel (K = 49): the golden gates."""
+    from pegasus_tpu_torch.assets.rosters import CUP_NOODLE_CLASSES, ENV_CLASSES, YCB_CLASSES
+    from pegasus_tpu_torch.ops.rasterize_ref import rasterize_reference
+    from pegasus_tpu_torch.testing import build_roster_dataset
+
+    small = tmp / "crowded_small"
+    env_cls = next(c for c in ENV_CLASSES.values() if c(small).object_name == env_name)
+    envs, objs = build_roster_dataset(small, [env_cls],
+                                      list(YCB_CLASSES.values()) + list(CUP_NOODLE_CLASSES.values()),
+                                      env_splats=20_000, obj_splats=500)
+    t0 = time.perf_counter()
+    golden = roster_replay(small, out, "crowded_golden", envs, objs, physics_file, env_name, 1, device,
+                           rasterize_fn=rasterize_reference)
+    golden.generate_dataset(MODALITIES, save_bop=True, save_video=False)
+    golden.save2bop()
+    golden_s = time.perf_counter() - t0
+    kernel = roster_replay(small, out, "crowded_kernel", envs, objs, physics_file, env_name, 1, device)
+    kernel.generate_dataset(MODALITIES, save_bop=True, save_video=False)
+    kernel.save2bop()
+    n = len(kernel.viewport_cam_list)
+    require(n == 4 and len(kernel.bullet_ids) == CROWD_OBJECTS, (n, len(kernel.bullet_ids)))
+    worst = golden_tree_gates(out / "crowded_golden" / "train" / "000001",
+                              out / "crowded_kernel" / "train" / "000001")
+    print(f"crowded golden: {n} frames of a 20k + {CROWD_OBJECTS} x 500 splat scene at K = "
+          f"{CROWD_OBJECTS + 1}, rasterize_fn=rasterize_reference {golden_s:.3f} s against the "
+          f"kernel: JSON bytes equal, worst rgb {worst['rgb_db']:.2f} dB, masks "
+          f"{100 * worst['mask']:.4f} % of pixels, depth within 1 mm on "
+          f"{100 * worst['depth_1mm']:.4f} % card={card}", flush=True)
+    return worst
+
+
+def crowded_scene_phase(tmp: Path, device, card: str) -> dict:
+    """Phase 18: a crowded scene, 48 objects (K = 49), on the main path and
+    against the plain versions and the golden."""
+    import numpy as np
+    import torch
+
+    from pegasus_tpu_torch.assets.rosters import CUP_NOODLE_CLASSES, ENV_CLASSES, YCB_CLASSES
+    from pegasus_tpu_torch.physics import rigid_body as rb
+    from pegasus_tpu_torch.scene.composition import pose_scene
+    from pegasus_tpu_torch.testing import build_roster_dataset
+
+    t0 = time.perf_counter()
+    data, out = tmp / "crowded_data", tmp / "crowded_out"
+    envs, objs = build_roster_dataset(data, list(ENV_CLASSES.values())[:1],
+                                      list(YCB_CLASSES.values()) + list(CUP_NOODLE_CLASSES.values()),
+                                      env_splats=CROWD_ENV_SPLATS, obj_splats=CROWD_OBJ_SPLATS)
+    require(len(objs) == 51, len(objs))
+    for env in envs:
+        env.DROP_REGION, env.DROP_HEIGHT = CROWD_DROP_REGION, CROWD_DROP_HEIGHT
+    t_assets = time.perf_counter() - t0
+    gen = crowded_generation(data, out, envs, objs, device, card)
+    rb.clear_step_programs()
+
+    peg = roster_replay(data, out, "crowded_replay", envs, objs, gen["physics_file"], gen["env"], 2, device)
+    drop = peg.trajectory.times_t
+    require(bool(np.isfinite(drop).all()) and float(np.abs(drop).max()) < 2.0,
+            f"the static drop left the scene: max |position| {float(np.abs(drop).max())} m")
+    scene = pose_scene(peg.template, *peg._body_poses_at(peg._initial_step))
+    require(scene.num_splats == CROWD_ENV_SPLATS + CROWD_OBJECTS * CROWD_OBJ_SPLATS, scene.num_splats)
+    cams = list(peg.viewport_cam_list)
+    cloud_210k = bench_scenes(device, ("210k",))["210k"]
+    kernels = crowded_kernel_checks(scene, cams, cloud_210k, device, card)
+    del scene, cloud_210k, peg
+    torch.cuda.empty_cache()
+    golden = crowded_golden_case(tmp, out, gen["physics_file"], gen["env"], device, card)
+    wall = time.perf_counter() - t0
+    print(f"phase 18: {wall:.1f} s (assets {t_assets:.1f} s) card={card}", flush=True)
+    return {"launches": gen["launches"], "generation": gen, "kernels": kernels, "golden": golden}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
                         help="also time simulate_variants(1000) in phase 9")
     parser.add_argument("--from-phase", type=int, default=1, metavar="N",
                         help="skip phases 3 to N - 1 (N > 3); such a run prints no result lines; "
-                             "12 runs the build, the compact-readback case and phases 12-17, "
-                             "16 the build and phases 16-17, 17 the build and phase 17")
+                             "12 runs the build, the compact-readback case and phases 12-18, "
+                             "16 the build and phases 16-18, 17 the build and phases 17-18, "
+                             "18 the build and phase 18")
     args = parser.parse_args()
     t_start = time.perf_counter()
     whole = args.from_phase <= 3
@@ -2779,7 +3056,11 @@ def main() -> int:
             periphery = asset_and_viewing_phase(Path(tmp), data, out, dev, card)
             torch.cuda.empty_cache()
         # -- phase 17: the renderer seam ----------------------------------------------------------------------
-        seam = renderer_seam_phase(Path(tmp), data, out, dev, card, max_objects)
+        if args.from_phase <= 17:
+            seam = renderer_seam_phase(Path(tmp), data, out, dev, card, max_objects)
+            torch.cuda.empty_cache()
+        # -- phase 18: a crowded scene (K = 49) --------------------------------------------------------------
+        crowded = crowded_scene_phase(Path(tmp), dev, card)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
     if not whole:
@@ -2793,7 +3074,8 @@ def main() -> int:
         "launches": (gen_launches + compact_launches + train_launches["forward"] + loop_launches
                      + variant_launches + sharded_launches + sharded_gen_launches
                      + dp_launches["forward"] + rehearsal_launches
-                     + sum(periphery["forward"].values()) + seam["forward"]),
+                     + sum(periphery["forward"].values()) + seam["forward"]
+                     + crowded["launches"]),
         "launches_generation": gen_launches,
         "launches_compact_readback": compact_launches,
         "launches_training": train_launches["forward"],
@@ -2807,9 +3089,10 @@ def main() -> int:
         "launches_gui": periphery["forward"]["gui"],
         "launches_render_wrappers": periphery["forward"]["render_wrappers"],
         "launches_renderer_seam": seam["forward"],
+        "launches_crowded": crowded["launches"],
         "max_abs_err": max(max_abs_err, bwd_train["fwd_max_abs_err"], bwd_210k["fwd_max_abs_err"],
                            chunk_k1["max_abs_err"], seam["render"]["max_abs_err"],
-                           *(f for f, _ in stress)),
+                           crowded["kernels"]["fwd_max_abs_err"], *(f for f, _ in stress)),
         "chunk_entries": CHUNK_ENTRIES,
         "items": timings["210k"]["hist"]["items"][CHUNK_ENTRIES],
         "items_1m": timings["1M"]["hist"]["items"][CHUNK_ENTRIES],
@@ -2838,6 +3121,15 @@ def main() -> int:
         "bound_ms_capped": seam["render"]["bound_ms"],
         "bound_by_capped": seam["render"]["bound_by"],
         "entries_dropped_capped": seam["render"]["dropped"],
+        # a frame of the crowded scene (phase 18) at K = 49, and at K = 7 with its ids folded
+        "ms_k49": crowded["kernels"]["k"][49]["fwd_ms"],
+        "plain_ms_k49": crowded["kernels"]["k"][49]["fwd_plain_ms"],
+        "bound_ms_k49": crowded["kernels"]["k"][49]["fwd"][0],
+        "bound_by_k49": crowded["kernels"]["k"][49]["fwd"][1],
+        "ms_k7_crowded_view": crowded["kernels"]["k"][7]["fwd_ms"],
+        "bound_ms_k7_crowded_view": crowded["kernels"]["k"][7]["fwd"][0],
+        "ms_chunk_k49": crowded["kernels"]["chunk_ms"],
+        "bound_ms_chunk_k49": crowded["kernels"]["chunk_bound"][0],
     }, {
         "name": "composite_tiles_backward",
         "route": "cuda",
@@ -2867,6 +3159,14 @@ def main() -> int:
         "plain_ms_210k": bwd_210k["plain_ms"],
         "bound_ms_210k": bwd_210k["bwd"][0],
         "scatter_ms": scatter["ms"],
+        "max_abs_err_k49": crowded["kernels"]["k"][49]["max_abs_err"],
+        "min_cosine_k49": min(crowded["kernels"]["k"][k]["min_cosine"] for k in (33, 49)),
+        "ms_k49": crowded["kernels"]["k"][49]["ms"],
+        "plain_ms_k49": crowded["kernels"]["k"][49]["plain_ms"],
+        "bound_ms_k49": crowded["kernels"]["k"][49]["bwd"][0],
+        "bound_by_k49": crowded["kernels"]["k"][49]["bwd"][1],
+        "ms_k7_crowded_view": crowded["kernels"]["k"][7]["ms"],
+        "bound_ms_k7_crowded_view": crowded["kernels"]["k"][7]["bwd"][0],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

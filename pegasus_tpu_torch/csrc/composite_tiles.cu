@@ -48,7 +48,19 @@
 //   * the K seg / vis / amodal accumulators live in registers, with
 //     instances for K <= 1, 2, 4, 8, 16 and 32 (training composites K = 1,
 //     generation K = 7), so a kept pair loops over no more objects than the
-//     instance holds;
+//     instance holds.  K > 32 (a crowded scene: PEGASUS renders objects + 1
+//     channels) takes object groups on the grid's second axis: the blocks
+//     (item, g), g < ceil(K / 32), walk the same entries with the K = 32
+//     registers and accumulate only the objects [32 g, 32 g + 32).  Every
+//     group runs the same arithmetic on the same entries, so all of them
+//     hold the same rgb, depth, alpha and transmittances bit for bit;
+//     group 0 alone writes those, and each group writes its own object
+//     channels of the partials and of the output.  A tile's counter then
+//     counts items x groups, and the last of those blocks combines every
+//     group in turn (a group's combine needs the items' transmittances,
+//     which only group 0 wrote).  So K has no bound, one launch still
+//     composites the chunk, and nothing is summed by an atomic; K <= 32
+//     launches the instances above, unchanged, on a grid of one group;
 //   * each batch of 256 entries is gathered through entry_splat into shared
 //     memory without cp.async double buffering: the item split leaves four
 //     (K = 8) to five (K = 1) blocks on an SM, whose gathers overlap the
@@ -83,11 +95,13 @@ struct FwdArgs {
 
 // Combine the n_items partials of the tile whose first item is `first`, in
 // item order (composite_common.cuh), into pixel `pix` of [C, H, W, F] (its
-// index in the C x H x W pixels).  The partials were written by other
-// blocks of this launch: __ldcg reads them from L2, past this SM's L1.
+// index in the C x H x W pixels): objects [g0, g0 + K), and with g0 = 0 the
+// rgb, depth, alpha and transmittance channels too.  The partials were
+// written by other blocks of this launch: __ldcg reads them from L2, past
+// this SM's L1.
 template <int K>
 __device__ __forceinline__ void combine_items(const FwdArgs& a, int first, int n_items,
-                                              int tid, int64_t pix) {
+                                              int tid, int64_t pix, int g0 = 0) {
   const int k_out = a.k_out;
   const int f = 5 + 3 * k_out + 2;
   float t_acc = 1.f, t_ne_acc = 1.f;
@@ -105,10 +119,10 @@ __device__ __forceinline__ void combine_items(const FwdArgs& a, int first, int n
     for (int ch = 0; ch < 5; ++ch) acc[ch] += t_acc * __ldcg(p + ch * PX);
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      if (k < k_out) {
-        seg[k] += t_acc * __ldcg(p + (5 + k) * PX);
-        vis[k] += t_ne_acc * __ldcg(p + (5 + k_out + k) * PX);
-        am[k] += __ldcg(p + (5 + 2 * k_out + k) * PX);
+      if (g0 + k < k_out) {
+        seg[k] += t_acc * __ldcg(p + (5 + g0 + k) * PX);
+        vis[k] += t_ne_acc * __ldcg(p + (5 + k_out + g0 + k) * PX);
+        am[k] += __ldcg(p + (5 + 2 * k_out + g0 + k) * PX);
       }
     }
     t_acc *= __ldcg(p + (5 + 3 * k_out) * PX);
@@ -116,16 +130,19 @@ __device__ __forceinline__ void combine_items(const FwdArgs& a, int first, int n
   }
 
   float* o = a.out + pix * f;
+  if (g0 == 0) {
 #pragma unroll
-  for (int ch = 0; ch < 5; ++ch) o[ch] = acc[ch];
+    for (int ch = 0; ch < 5; ++ch) o[ch] = acc[ch];
+  }
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    if (k < k_out) {
-      o[5 + k] = seg[k];
-      o[5 + k_out + k] = vis[k];
-      o[5 + 2 * k_out + k] = am[k];
+    if (g0 + k < k_out) {
+      o[5 + g0 + k] = seg[k];
+      o[5 + k_out + g0 + k] = vis[k];
+      o[5 + 2 * k_out + g0 + k] = am[k];
     }
   }
+  if (g0 != 0) return;
   o[5 + 3 * k_out] = t_acc;
   o[5 + 3 * k_out + 1] = t_ne_acc;
 }
@@ -139,7 +156,10 @@ constexpr int min_blocks() {
   return K <= 2 ? 5 : K <= 8 ? 4 : K <= 16 ? 2 : 1;
 }
 
-template <int K>
+// GROUPED: the K > 32 launch, K = 32 objects per group, group blockIdx.y
+// (see the head of this file); K <= 32 launches GROUPED = false on a grid
+// of one group, where g0 is the constant 0.
+template <int K, bool GROUPED = false>
 __global__ void __launch_bounds__(PX, min_blocks<K>()) composite_tiles_kernel(FwdArgs a) {
   __shared__ float s_mx[PX], s_my[PX], s_ca[PX], s_cb[PX], s_cc[PX];
   __shared__ float s_op[PX], s_r[PX], s_g[PX], s_b[PX], s_d[PX], s_rad[PX];
@@ -166,6 +186,7 @@ __global__ void __launch_bounds__(PX, min_blocks<K>()) composite_tiles_kernel(Fw
   const int64_t pix = (static_cast<int64_t>(frame) * a.height + py) * a.width + px;
   const float fx = static_cast<float>(px);
   const float fy = static_cast<float>(py);
+  const int g0 = GROUPED ? K * static_cast<int>(blockIdx.y) : 0;  // this group's first object
 
   float t_full = 1.f, t_ne = 1.f;
   float acc_r = 0.f, acc_g = 0.f, acc_b = 0.f, acc_d = 0.f, acc_a = 0.f;
@@ -224,7 +245,7 @@ __global__ void __launch_bounds__(PX, min_blocks<K>()) composite_tiles_kernel(Fw
       if (!env) t_ne *= 1.f - alpha;
 #pragma unroll
       for (int k = 0; k < K; ++k) {
-        if (obj == k) {
+        if (obj - g0 == k) {
           seg[k] += w;
           vis[k] += w_ne;
           am[k] += log1m;
@@ -246,40 +267,58 @@ __global__ void __launch_bounds__(PX, min_blocks<K>()) composite_tiles_kernel(Fw
     o = a.out + pix * f;
     step = 1;
   }
-  o[0 * step] = acc_r;
-  o[1 * step] = acc_g;
-  o[2 * step] = acc_b;
-  o[3 * step] = acc_d;
-  o[4 * step] = acc_a;
+  if (g0 == 0) {  // the same in every group: group 0 writes them
+    o[0 * step] = acc_r;
+    o[1 * step] = acc_g;
+    o[2 * step] = acc_b;
+    o[3 * step] = acc_d;
+    o[4 * step] = acc_a;
+  }
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    if (k < k_out) {
-      o[(5 + k) * step] = seg[k];
-      o[(5 + k_out + k) * step] = vis[k];
-      o[(5 + 2 * k_out + k) * step] = am[k];
+    if (g0 + k < k_out) {
+      o[(5 + g0 + k) * step] = seg[k];
+      o[(5 + k_out + g0 + k) * step] = vis[k];
+      o[(5 + 2 * k_out + g0 + k) * step] = am[k];
     }
   }
-  o[(5 + 3 * k_out) * step] = t_full;
-  o[(5 + 3 * k_out + 1) * step] = t_ne;
+  if (g0 == 0) {
+    o[(5 + 3 * k_out) * step] = t_full;
+    o[(5 + 3 * k_out + 1) * step] = t_ne;
+  }
   if (!several) return;
 
   // The tile's item that finishes last combines its partials, as in CUDA's
   // threadFenceReduction sample: each block fences its writes before it
-  // counts itself in tile_done, and the block that counts n_items reads
-  // them all.  Nothing waits on another block.
+  // counts itself in tile_done, and the block that counts n_items (n_items
+  // x groups when GROUPED) reads them all.  Nothing waits on another block.
   const int n_items = items_of(count, a.chunk);
+  const int arrivals = GROUPED ? n_items * static_cast<int>(gridDim.y) : n_items;
   __threadfence();
   __syncthreads();
-  if (tid == 0) s_warp[0] = atomicAdd(a.tile_done + tile, 1) == n_items - 1;
+  if (tid == 0) s_warp[0] = atomicAdd(a.tile_done + tile, 1) == arrivals - 1;
   __syncthreads();
   if (!s_warp[0]) return;
   __threadfence();
-  if (inside) combine_items<K>(a, first, n_items, tid, pix);
+  if (!inside) return;
+  if (GROUPED) {
+    for (int g = 0; g < static_cast<int>(gridDim.y); ++g)
+      combine_items<K>(a, first, n_items, tid, pix, K * g);
+  } else {
+    combine_items<K>(a, first, n_items, tid, pix);
+  }
 }
 
 template <int K>
 int launch(const FwdArgs& a, int n_items, cudaStream_t st) {
   composite_tiles_kernel<K><<<n_items, PX, 0, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K > 32: ceil(K / 32) object groups of the K = 32 instance
+int launch_grouped(const FwdArgs& a, int n_items, cudaStream_t st) {
+  const dim3 grid(n_items, (a.k_out + 31) / 32);
+  composite_tiles_kernel<32, true><<<grid, PX, 0, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -293,8 +332,8 @@ int launch(const FwdArgs& a, int n_items, cudaStream_t st) {
 // afterwards.  `tile_done` is scratch of n_frames * ntx * nty ints, zeroed
 // here.  Enqueues the memset and the kernel on `stream`, does not
 // synchronise, allocates nothing; returns the first CUDA error
-// (cudaErrorInvalidValue for k_out outside 1..32, no tiles or frames,
-// chunk < 1 or too few items).
+// (cudaErrorInvalidValue for k_out < 1, no tiles or frames, chunk < 1 or
+// too few items).
 extern "C" int composite_tiles_launch(const float* params, int64_t n_splats,
                                       const int* entry_splat,
                                       const int* tile_start,
@@ -304,7 +343,7 @@ extern "C" int composite_tiles_launch(const float* params, int64_t n_splats,
                                       int ntx, int nty, int n_frames,
                                       int k_out, int chunk, void* stream) {
   const int n_tiles = ntx * nty;
-  if (k_out < 1 || k_out > 32 || n_tiles < 1 || n_frames < 1 || chunk < 1 ||
+  if (k_out < 1 || n_tiles < 1 || n_frames < 1 || chunk < 1 ||
       n_items < n_frames * n_tiles)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -319,5 +358,6 @@ extern "C" int composite_tiles_launch(const float* params, int64_t n_splats,
   if (k_out <= 4) return launch<4>(a, n_items, st);
   if (k_out <= 8) return launch<8>(a, n_items, st);
   if (k_out <= 16) return launch<16>(a, n_items, st);
-  return launch<32>(a, n_items, st);
+  if (k_out <= 32) return launch<32>(a, n_items, st);
+  return launch_grouped(a, n_items, st);
 }

@@ -52,7 +52,15 @@
 //     forward's own expression;
 //   * the K seg / vis / amodal cotangents of each pixel live in dynamic
 //     shared memory ([3K][256] floats, 96 KB at K = 32), read at the
-//     entry's object id, so one instance serves every K <= 32;
+//     entry's object id, so one instance serves every K <= 32.  Beyond
+//     that the staging would hold a block alone on its SM (147 KB at
+//     K = 49) and stop fitting at K = 68, so K > 32 (a crowded scene)
+//     takes a second instance that reads them where they are, from the
+//     pixel's row of grad_out in global memory (__ldg, at 5 + obj,
+//     5 + K + obj and 5 + 2K + obj), and forms the totals and the item's
+//     start state from there the same way.  The values and the order of
+//     every sum are those of the staged instance, so K has no bound and the
+//     gradients stay bitwise repeatable;
 //   * pixels beyond the ragged image edge have zero cotangent and are never
 //     read.
 //
@@ -134,8 +142,22 @@ struct BwdArgs {
   int width, height, ntx, n_tiles, k_out, chunk;
 };
 
+// One of the pixel's 3K object cotangents: from the shared staging, or
+// (K > 32) from grad_out through the read-only cache.
+template <bool STAGED>
+__device__ __forceinline__ float obj_grad(const float* p) {
+  if constexpr (STAGED) {
+    return *p;
+  } else {
+    return __ldg(p);
+  }
+}
+
+// STAGED: the 3K object cotangents staged in shared memory (K <= 32);
+// else read from grad_out (K > 32; see the head of this file).
+template <bool STAGED>
 __global__ void __launch_bounds__(PX) composite_tiles_bwd_kernel(BwdArgs a) {
-  extern __shared__ float s_gk[];  // [3 * k_out][PX]: gA seg, gB, gC
+  extern __shared__ float s_gk[];  // STAGED: [3 * k_out][PX]: gA seg, gB, gC
   __shared__ float s_mx[BATCH], s_my[BATCH], s_ca[BATCH], s_cb[BATCH], s_cc[BATCH];
   __shared__ float s_op[BATCH], s_r[BATCH], s_g[BATCH], s_b[BATCH], s_d[BATCH];
   __shared__ float s_rad[BATCH];
@@ -165,7 +187,8 @@ __global__ void __launch_bounds__(PX) composite_tiles_bwd_kernel(BwdArgs a) {
   const int f = 5 + 3 * k_out + 2;
 
   // this pixel's cotangent: rgb, depth, alpha, t_full, t_noenv in
-  // registers, the 3K object channels in shared memory
+  // registers, the 3K object channels in shared memory (STAGED) or in its
+  // row of grad_out, object k at gA_obj[k * ks]
   float gA0 = 0.f, gA1 = 0.f, gA2 = 0.f, gA3 = 0.f, gA4 = 0.f;
   float g_tf = 0.f, g_tn = 0.f;
   const int64_t pix = static_cast<int64_t>(py) * a.width + px;
@@ -179,10 +202,16 @@ __global__ void __launch_bounds__(PX) composite_tiles_bwd_kernel(BwdArgs a) {
     g_tf = g[5 + 3 * k_out];
     g_tn = g[5 + 3 * k_out + 1];
   }
-  for (int ch = 0; ch < 3 * k_out; ++ch) s_gk[ch * PX + tid] = inside ? g[5 + ch] : 0.f;
-  const float* gA_obj = s_gk + tid;                   // [obj * PX]
-  const float* gB_obj = s_gk + k_out * PX + tid;      // vis
-  const float* gC_obj = s_gk + 2 * k_out * PX + tid;  // amodal log
+  constexpr int ks = STAGED ? PX : 1;
+  const float* gA_obj;
+  if constexpr (STAGED) {
+    for (int ch = 0; ch < 3 * k_out; ++ch) s_gk[ch * PX + tid] = inside ? g[5 + ch] : 0.f;
+    gA_obj = s_gk + tid;
+  } else {
+    gA_obj = g + 5;  // read only where the pixel is inside
+  }
+  const float* gB_obj = gA_obj + k_out * ks;      // vis
+  const float* gC_obj = gA_obj + 2 * k_out * ks;  // amodal log
 
   // totals off the forward's output: S = out_A . gA, S_ne = vis . gB and
   // the final transmittances
@@ -191,8 +220,8 @@ __global__ void __launch_bounds__(PX) composite_tiles_bwd_kernel(BwdArgs a) {
     const float* o = a.out + pix * f;
     s_full = o[0] * gA0 + o[1] * gA1 + o[2] * gA2 + o[3] * gA3 + o[4] * gA4;
     for (int k = 0; k < k_out; ++k) {
-      s_full += o[5 + k] * gA_obj[k * PX];
-      s_ne += o[5 + k_out + k] * gB_obj[k * PX];
+      s_full += o[5 + k] * obj_grad<STAGED>(gA_obj + k * ks);
+      s_ne += o[5 + k_out + k] * obj_grad<STAGED>(gB_obj + k * ks);
     }
     t_full_end = o[5 + 3 * k_out];
     t_ne_end = o[5 + 3 * k_out + 1];
@@ -207,8 +236,8 @@ __global__ void __launch_bounds__(PX) composite_tiles_bwd_kernel(BwdArgs a) {
                   p[4 * PX] * gA4;
       float v_g = 0.f;
       for (int k = 0; k < k_out; ++k) {
-        a_g += p[(5 + k) * PX] * gA_obj[k * PX];
-        v_g += p[(5 + k_out + k) * PX] * gB_obj[k * PX];
+        a_g += p[(5 + k) * PX] * obj_grad<STAGED>(gA_obj + k * ks);
+        v_g += p[(5 + k_out + k) * PX] * obj_grad<STAGED>(gB_obj + k * ks);
       }
       pre += t_full * a_g;
       pre_ne += t_ne * v_g;
@@ -257,16 +286,17 @@ __global__ void __launch_bounds__(PX) composite_tiles_bwd_kernel(BwdArgs a) {
           const float one_m = 1.f - alpha;
           const float inv = __frcp_rn(one_m);  // one reciprocal, no divisions
           const float fg = s_r[j] * gA0 + s_g[j] * gA1 + s_b[j] * gA2 +
-                           s_d[j] * gA3 + gA4 + gA_obj[obj * PX];
+                           s_d[j] * gA3 + gA4 + obj_grad<STAGED>(gA_obj + obj * ks);
           const float t_excl = t_full;
           const float w = alpha * t_excl;
           pre += w * fg;
           // the suffix sum and the t_out term, and the amodal d log(1 - a) / da
-          float tail = (s_full - pre) + t_full_end * g_tf + gC_obj[obj * PX];
+          float tail = (s_full - pre) + t_full_end * g_tf +
+                       obj_grad<STAGED>(gC_obj + obj * ks);
           float da = t_excl * fg;
           t_full *= one_m;
           if (obj != 0) {  // the vis chain: object entries only
-            const float gb = gB_obj[obj * PX];
+            const float gb = obj_grad<STAGED>(gB_obj + obj * ks);
             const float t_excl_ne = t_ne;
             const float w_ne = alpha * t_excl_ne;
             pre_ne += w_ne * gb;
@@ -316,7 +346,7 @@ __global__ void __launch_bounds__(PX) composite_tiles_bwd_kernel(BwdArgs a) {
 // [10, n_entries] output (rows P_MX .. P_DEPTH; every entry of every tile is
 // written).  Launches on `stream`, does not synchronise, allocates nothing;
 // returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
-// k_out outside 1..32, no tiles, chunk < 1 or too few items).
+// k_out < 1, no tiles, chunk < 1 or too few items).
 extern "C" int composite_tiles_bwd_launch(
     const float* params, int64_t n_splats, const int* entry_splat,
     const int* tile_start, const int* tile_count, const float* grad_out,
@@ -324,18 +354,22 @@ extern "C" int composite_tiles_bwd_launch(
     int64_t n_entries, int n_items, int width, int height, int ntx, int nty,
     int k_out, int chunk, void* stream) {
   const int n_tiles = ntx * nty;
-  if (k_out < 1 || k_out > 32 || n_tiles < 1 || chunk < 1 || n_items < n_tiles)
+  if (k_out < 1 || n_tiles < 1 || chunk < 1 || n_items < n_tiles)
     return cudaErrorInvalidValue;
-  const int dyn_bytes = 3 * k_out * PX * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      composite_tiles_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      dyn_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const BwdArgs a{params,   n_splats,   entry_splat, tile_start, tile_count,
                   grad_out, out,        partials,    entry_grad, n_entries,
                   width,    height,     ntx,         n_tiles,    k_out,
                   chunk};
-  composite_tiles_bwd_kernel<<<n_items, PX, dyn_bytes,
-                               static_cast<cudaStream_t>(stream)>>>(a);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (k_out > 32) {
+    composite_tiles_bwd_kernel<false><<<n_items, PX, 0, st>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int dyn_bytes = 3 * k_out * PX * static_cast<int>(sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(
+      composite_tiles_bwd_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dyn_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  composite_tiles_bwd_kernel<true><<<n_items, PX, dyn_bytes, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

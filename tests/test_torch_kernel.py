@@ -17,7 +17,9 @@ kernel's output and partials.  Neither kernel sums a float by an atomic:
 each combines its partial results in a fixed order, so two launches must
 agree bitwise.  A launch over a chunk of C frames must equal the C
 launches of its frames bitwise, and pass the same limits against the plain
-version on the chunk.
+version on the chunk.  K > 32 (a crowded scene) takes the forward's object
+groups and the backward's unstaged instance: K = 33, 49 and 64 are held
+to the same limits.
 """
 
 import numpy as np
@@ -86,7 +88,10 @@ def camera(view, device, width=640, height=480):
     ("grazing", 640, 480, 6),
     ("orbit", 70, 50, 6),       # ragged edge tiles
     ("orbit", 320, 240, 12),    # K = 13: the K <= 16 instance
-    ("grazing", 320, 240, 25),  # K = 26: the K <= 32 instance
+    ("grazing", 320, 240, 25),  # K = 26: the K = 32 instance
+    ("orbit", 320, 240, 32),    # K = 33: two object groups, the second of one object
+    ("orbit", 640, 480, 48),    # K = 49: the crowded scene's K
+    ("grazing", 320, 240, 63),  # K = 64: two full groups
 ])
 def test_kernel_matches_plain(cuda, view, width, height, n_objects):
     cam = camera(view, cuda, width, height)
@@ -145,6 +150,9 @@ def assert_rows_agree(got, want):
     ("orbit", 70, 50, 6, 20_000),     # K = 7, ragged edge tiles
     ("grazing", 160, 120, 12, 8_000),  # K = 13: seg/vis/amodal terms at K <= 16
     ("orbit", 120, 90, 25, 0),        # K = 26, objects only: empty tiles
+    ("orbit", 160, 120, 32, 8_000),   # K = 33: cotangents read from grad_out
+    ("grazing", 200, 152, 48, 20_000),  # K = 49
+    ("orbit", 120, 90, 63, 0),        # K = 64, objects only
 ])
 def test_backward_kernel_matches_plain(cuda, view, width, height, n_objects, n_plane):
     cam = camera(view, cuda, width, height)
@@ -191,9 +199,9 @@ def test_backward_counts_launches_and_checks_inputs(cuda):
     composite_tiles_backward(bins, g, out, partials, 64, 48, 7)
     composite_tiles_backward_torch(bins, g, out, partials, 64, 48, 7)  # the plain version does not count
     assert composite_tiles_backward.launches == before + 1
-    with pytest.raises(ValueError, match="max_objects"):
+    with pytest.raises(ValueError, match="grad_out: want"):  # its K is not the output's
         composite_tiles_backward(bins, torch.ones((48, 64, 5 + 3 * 33 + 2), device=cuda),
-                                 out, partials, 64, 48, 33)
+                                 out, partials, 64, 48, 7)
     with pytest.raises(ValueError, match="grad_out on cpu"):
         composite_tiles_backward(bins, g.cpu(), out, partials, 64, 48, 7)
     with pytest.raises(ValueError, match="on cpu"):
@@ -252,18 +260,19 @@ def test_long_segments_match_plain(cuda, k, chunk_entries):
     assert_rows_agree(got, want_g)
 
 
-def test_kernels_are_bitwise_repeatable(cuda):
+@pytest.mark.parametrize("k", [7, 33, 49, 64])
+def test_kernels_are_bitwise_repeatable(cuda, k):
     cam = camera("orbit", cuda)
-    bins = bin_splats(project_gaussians(scene(cuda), cam), 640, 480)
-    g = torch.randn((480, 640, 5 + 3 * 7 + 2), generator=torch.Generator().manual_seed(3)).to(cuda)
+    bins = bin_splats(project_gaussians(scene(cuda, k - 1), cam), 640, 480)
+    g = torch.randn((480, 640, 5 + 3 * k + 2), generator=torch.Generator().manual_seed(3)).to(cuda)
     for chunk_entries in (CHUNK_ENTRIES, 64):
         assert int(bins.tile_count.max()) > chunk_entries  # some tiles of several items
-        first, partials = composite_tiles(bins, 640, 480, 7, chunk_entries, return_partials=True)
-        assert all(torch.equal(first, composite_tiles(bins, 640, 480, 7, chunk_entries))
+        first, partials = composite_tiles(bins, 640, 480, k, chunk_entries, return_partials=True)
+        assert all(torch.equal(first, composite_tiles(bins, 640, 480, k, chunk_entries))
                    for _ in range(3))
-        grad = composite_tiles_backward(bins, g, first, partials, 640, 480, 7, chunk_entries)
+        grad = composite_tiles_backward(bins, g, first, partials, 640, 480, k, chunk_entries)
         assert all(torch.equal(grad, composite_tiles_backward(bins, g, first, partials, 640, 480,
-                                                              7, chunk_entries))
+                                                              k, chunk_entries))
                    for _ in range(3))
 
 
@@ -278,8 +287,9 @@ def assert_within_forward_limits(got, want, k):
         assert float((a - b).abs().max()) <= 1e-3 * max(1.0, float(a.abs().max())), name
 
 
-@pytest.mark.parametrize("width,height", [(640, 480), (70, 50)])
-def test_chunk_launch_equals_frame_launches(cuda, width, height):
+@pytest.mark.parametrize("width,height,k", [(640, 480, 7), (70, 50, 7), (640, 480, 33),
+                                            (640, 480, 49), (70, 50, 64)])
+def test_chunk_launch_equals_frame_launches(cuda, width, height, k):
     """One launch over three views (the last with another field of view)
     against one launch per view, bitwise; a ragged frame writes nothing
     into the next."""
@@ -287,16 +297,16 @@ def test_chunk_launch_equals_frame_launches(cuda, width, height):
             Camera.look_at(eye=(0.2, 0.9, 0.5), target=(0, 0, 0.05), up=(0, 0, 1),
                            fovx=np.deg2rad(45), fovy=np.deg2rad(35), width=width, height=height,
                            device=cuda)]
-    s = scene(cuda)
+    s = scene(cuda, k - 1)
     bins = bin_splats(project_gaussians(s, CameraBatch.stack(cams)), width, height)
     before = composite_tiles.launches
-    chunk = composite_tiles(bins, width, height, 7)
+    chunk = composite_tiles(bins, width, height, k)
     assert composite_tiles.launches == before + 1
-    assert chunk.shape == (3, height, width, 5 + 3 * 7 + 2)
+    assert chunk.shape == (3, height, width, 5 + 3 * k + 2)
     for f, cam in enumerate(cams):
-        one = composite_tiles(bin_splats(project_gaussians(s, cam), width, height), width, height, 7)
+        one = composite_tiles(bin_splats(project_gaussians(s, cam), width, height), width, height, k)
         assert torch.equal(chunk[f], one), f
-    assert_within_forward_limits(chunk, composite_tiles_torch(bins, width, height, 7), 7)
+    assert_within_forward_limits(chunk, composite_tiles_torch(bins, width, height, k), k)
 
 
 def test_chunk_of_stress_tiles_matches_plain(cuda):
