@@ -34,6 +34,7 @@ from pegasus_tpu_torch.io.bop_writer import (
     calculate_gt_info,
     convert_scenewise_to_imagewise_ndds,
     write_models,
+    write_scene_gt_info,
 )
 from pegasus_tpu_torch.io.mesh import load_mesh
 from pegasus_tpu_torch.pegasus import PEGASUS
@@ -103,8 +104,10 @@ def run_generation(
     done = completed_scene_ids(out_root, config.dataset_name) if config.resume else set()
 
     n_frames = config.num_cameras * config.num_camera_interpolation_steps
+    gt_info: dict = {}  # scene id -> its scene_gt_info, from the masks in memory
 
     def one_scene(scene_id: int) -> None:
+        gt_info.pop(scene_id, None)  # a retried scene's earlier records are stale
         t0 = time.perf_counter()
         timers: dict = {}
         with stage_timer(timers, "physics"):
@@ -127,6 +130,7 @@ def run_generation(
             )
         with stage_timer(timers, "finalize"):
             pegasus.save2bop()
+        gt_info[scene_id] = pegasus.last_gt_info
         dt = time.perf_counter() - t0
         stats.record(
             scene_id,
@@ -141,6 +145,8 @@ def run_generation(
             # device->host transfer accounting from the render loop
             # (bytes fetched + time blocked on fetches)
             **getattr(pegasus, "last_render_stats", {}),
+            # frames whose gt-info came from the masks in memory
+            gt_info_frames=len(gt_info[scene_id]),
         )
 
     for scene_id in range(1, config.num_scenes + 1):
@@ -148,22 +154,37 @@ def run_generation(
             continue
         retry_scene(one_scene, scene_id)
 
-    finalize_dataset(config)
-    print(f"[pegasus-tpu-torch] generation summary: {stats.summary()}")
+    read_back = finalize_dataset(config, gt_info=gt_info)
+    print(f"[pegasus-tpu-torch] generation summary: {stats.summary()}, "
+          f"gt-info read back from the mask PNGs of {read_back} scene(s)")
     return stats
 
 
-def finalize_dataset(config: GenerationConfig) -> None:
+def finalize_dataset(config: GenerationConfig, gt_info: Optional[dict] = None) -> int:
     """gt-info over the finished scenes and the scene-wise -> image-wise
     NDDS conversion (80 % train, 20 % test), when the config asks for it.
-    The sequential path ends with it; after sharded runs the caller does."""
+    The sequential path ends with it; after sharded runs the caller does.
+
+    ``gt_info`` maps a scene id to the scene_gt_info that ``PEGASUS``
+    computed from the masks in memory (``last_gt_info``), written as it is.
+    Every other finished scene whose scene_gt_info.json is missing or older
+    than its scene_gt.json gets ``calculate_gt_info``, which reads the mask
+    PNGs back.  Returns the number of scenes read back."""
     out_root = Path(config.dataset_base_path)
     dataset_dir = out_root / config.dataset_name
+    read_back = []
     if config.convert_scenewise_to_imagewise:
         scene_ids = sorted(
             completed_scene_ids(out_root, config.dataset_name)
         )
-        calculate_gt_info(out_root, config.dataset_name, scene_ids)
+        gt_info = gt_info or {}
+        for scene_id in scene_ids:
+            scene_path = dataset_dir / "train" / f"{scene_id:06d}"
+            if scene_id in gt_info:
+                write_scene_gt_info(scene_path, gt_info[scene_id])
+            elif not _gt_info_is_current(scene_path):
+                read_back.append(scene_id)
+        calculate_gt_info(out_root, config.dataset_name, read_back)
         n = len(scene_ids)
         split = int(np.round(0.8 * n))
         train_ids = ",".join(str(s) for s in scene_ids[:split])
@@ -177,6 +198,17 @@ def finalize_dataset(config: GenerationConfig) -> None:
             convert_scenewise_to_imagewise_ndds(
                 str(train_dir), str(dataset_dir / "test_ndds"), test_ids
             )
+    return len(read_back)
+
+
+def _gt_info_is_current(scene_path: Path) -> bool:
+    """scene_gt_info.json is no older than the scene's last file
+    (scene_gt.json, written once its masks are on disk).  Equal times are
+    current: rewriting a scene takes far longer than a clock tick."""
+    info = scene_path / "scene_gt_info.json"
+    return info.exists() and (
+        info.stat().st_mtime_ns >= (scene_path / "scene_gt.json").stat().st_mtime_ns
+    )
 
 
 def write_targets_bop19(dataset_root, dataset_name: str, out_name: str = "test_targets_bop19.json") -> None:

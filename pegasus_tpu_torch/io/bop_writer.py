@@ -1,4 +1,4 @@
-"""Copied verbatim from ``pegasus_tpu/io/bop_writer.py``; only the import lines differ, and ``calculate_gt_info`` reads its masks with ``io/png.py::read_png`` (no imageio).
+"""Port of ``pegasus_tpu/io/bop_writer.py``: ``calculate_gt_info`` reads its masks with ``io/png.py::read_png`` (no imageio), and a writer made with ``collect_gt_info=True`` derives each frame's gt-info records from the masks it writes.
 
 BOP-format dataset writer (+ NDDS conversion, gt-info).
 
@@ -25,7 +25,10 @@ Differences from the reference (all deliberate, documented):
     (pegasus.py:346-358) that can race process exit;
   * ``unit_scale`` converts model/gt translations to millimeters
     (BOP-standard).  The reference writes models/gt in meters but depth in
-    millimeters; unit_scale=1.0 reproduces that behavior.
+    millimeters; unit_scale=1.0 reproduces that behavior;
+  * ``collect_gt_info=True`` (the owner hands the records on, as
+    ``PEGASUS.save2bop`` does) computes scene_gt_info's records in the pool
+    from the masks as they are written, so nothing decodes the PNGs again.
 """
 
 from __future__ import annotations
@@ -74,6 +77,7 @@ class BOPDatasetWriter:
         unit_scale: float = 1000.0,
         writer_threads: int = 8,
         write_models_now: bool = True,
+        collect_gt_info: bool = False,
     ):
         """camera_intr: {'fx','fy','width','height'} of the source COLMAP
         reconstruction; rescaled to the render resolution through the
@@ -82,6 +86,10 @@ class BOPDatasetWriter:
 
         object_models: {real_object_id: TriMesh in meters} (from the asset
         registry's URDF obj meshes).
+
+        collect_gt_info: derive each frame's gt-info from its masks in the
+        pool; ``save_scene_annotations`` then sets ``scene_gt_info`` to
+        what ``calculate_gt_info`` would read back from the PNGs.
         """
         self.dataset_name = dataset_name
         self.dataset_path = Path(dataset_output_path) / dataset_name
@@ -141,6 +149,10 @@ class BOPDatasetWriter:
         self.scene_gt_json: Dict[str, list] = {}
         self._pool = ThreadPoolExecutor(max_workers=writer_threads)
         self._futures: List[Future] = []
+        # frame id -> (amodal, visib) per-channel (pixel count, bbox), None
+        # for a modality not written; filled by the pool's jobs
+        self._mask_stats: Dict[int, tuple] | None = {} if collect_gt_info else None
+        self.scene_gt_info: Dict[str, list] | None = None
 
     # -- per-frame ------------------------------------------------------------
 
@@ -232,6 +244,17 @@ class BOPDatasetWriter:
                 return m.view(np.uint8) * np.uint8(255)
             return m.astype(np.uint8) * np.uint8(255)
 
+        def write_masks(path, masks):
+            """One PNG per channel; with gt-info collected, each channel's
+            (pixel count, bbox) of the plane as a PNG reader sees it (> 127)."""
+            stats = []
+            for k in range(masks.shape[-1]):
+                plane = _mask_u8(masks[..., k])
+                write_png(path / f"{frame_id:06d}_{k:06d}.png", plane, compression=1)
+                if self._mask_stats is not None:
+                    stats.append(_plane_stats(plane if masks.dtype == np.bool_ else plane > 127))
+            return stats
+
         # per-modality deflate levels, tuned for single-core hosts (the
         # writer is the generation wall-clock bottleneck there): masks and
         # sem are mostly-zero byte planes where level 1 is 2-3x faster at
@@ -249,20 +272,10 @@ class BOPDatasetWriter:
                 d16 = np.clip(depth_m * 1000.0, 0, 65535).astype(np.uint16)
                 write_png(self.depth_path / f"{frame_id:06d}.png", d16,
                           compression=1)
-            if mask_amodal is not None:
-                for k in range(mask_amodal.shape[-1]):
-                    write_png(
-                        self.mask_path / f"{frame_id:06d}_{k:06d}.png",
-                        _mask_u8(mask_amodal[..., k]),
-                        compression=1,
-                    )
-            if mask_visib is not None:
-                for k in range(mask_visib.shape[-1]):
-                    write_png(
-                        self.mask_visib_path / f"{frame_id:06d}_{k:06d}.png",
-                        _mask_u8(mask_visib[..., k]),
-                        compression=1,
-                    )
+            amodal = None if mask_amodal is None else write_masks(self.mask_path, mask_amodal)
+            visib = None if mask_visib is None else write_masks(self.mask_visib_path, mask_visib)
+            if self._mask_stats is not None:
+                self._mask_stats[frame_id] = (amodal, visib)
             if sem_mask is not None:
                 write_png(self.sem_mask_path / f"{frame_id:06d}.png",
                           sem_mask, compression=1)
@@ -281,8 +294,19 @@ class BOPDatasetWriter:
 
     def save_scene_annotations(self) -> None:
         """scene_camera.json + scene_gt.json (reference save2bop,
-        pegasus.py:392-396)."""
+        pegasus.py:392-396); with gt-info collected, ``scene_gt_info`` in
+        scene_gt's frame order, one record per gt entry."""
         self.flush()
+        if self._mask_stats is not None:
+            def channel(stats, k):
+                return stats[k] if stats is not None and k < len(stats) else None
+
+            self.scene_gt_info = {}
+            for frame_id, entries in self.scene_gt_json.items():
+                amodal, visib = self._mask_stats.get(int(frame_id), (None, None))
+                self.scene_gt_info[frame_id] = [
+                    _gt_record(channel(amodal, k), channel(visib, k)) for k in range(len(entries))
+                ]
         with open(self.scene_path / "scene_camera.json", "w") as f:
             json.dump(self.scene_camera_json, f, indent=1, default=_to_json)
         with open(self.scene_path / "scene_gt.json", "w") as f:
@@ -359,29 +383,43 @@ def calculate_gt_info(dataset_root, dataset_name=None, scene_ids=None, object_li
             for k in range(len(entries)):
                 amodal_p = scene_path / "mask" / f"{fid:06d}_{k:06d}.png"
                 visib_p = scene_path / "mask_visib" / f"{fid:06d}_{k:06d}.png"
-                rec = {
-                    "bbox_obj": [-1, -1, -1, -1],
-                    "bbox_visib": [-1, -1, -1, -1],
-                    "px_count_all": 0,
-                    "px_count_valid": 0,
-                    "px_count_visib": 0,
-                    "visib_fract": 0.0,
-                }
+                amodal = visib = None
                 if amodal_p.exists():
                     am = np.asarray(read_png(amodal_p)) > 127
-                    rec["px_count_all"] = int(am.sum())
-                    rec["px_count_valid"] = int(am.sum())
-                    rec["bbox_obj"] = _mask_bbox(am)
+                    amodal = (int(am.sum()), _mask_bbox(am))
                 if visib_p.exists():
                     vis = np.asarray(read_png(visib_p)) > 127
-                    rec["px_count_visib"] = int(vis.sum())
-                    rec["bbox_visib"] = _mask_bbox(vis)
-                if rec["px_count_all"] > 0:
-                    rec["visib_fract"] = rec["px_count_visib"] / rec["px_count_all"]
-                frame_info.append(rec)
+                    visib = (int(vis.sum()), _mask_bbox(vis))
+                frame_info.append(_gt_record(amodal, visib))
             info[frame_id] = frame_info
-        with open(scene_path / "scene_gt_info.json", "w") as f:
-            json.dump(info, f, indent=1, default=_to_json)
+        write_scene_gt_info(scene_path, info)
+
+
+def write_scene_gt_info(scene_path, info: dict) -> None:
+    """scene_gt_info.json of one scene: {frame id: [record per gt entry]}."""
+    with open(Path(scene_path) / "scene_gt_info.json", "w") as f:
+        json.dump(info, f, indent=1, default=_to_json)
+
+
+def _gt_record(amodal, visib) -> dict:
+    """One object's gt-info record from its amodal and visible masks'
+    (pixel count, bbox), each None where that mask was not written."""
+    rec = {
+        "bbox_obj": [-1, -1, -1, -1],
+        "bbox_visib": [-1, -1, -1, -1],
+        "px_count_all": 0,
+        "px_count_valid": 0,
+        "px_count_visib": 0,
+        "visib_fract": 0.0,
+    }
+    if amodal is not None:
+        rec["px_count_all"] = rec["px_count_valid"] = amodal[0]
+        rec["bbox_obj"] = amodal[1]
+    if visib is not None:
+        rec["px_count_visib"], rec["bbox_visib"] = visib
+    if rec["px_count_all"] > 0:
+        rec["visib_fract"] = rec["px_count_visib"] / rec["px_count_all"]
+    return rec
 
 
 def _mask_bbox(mask: np.ndarray) -> list:
@@ -395,6 +433,22 @@ def _mask_bbox(mask: np.ndarray) -> list:
         int(xs.max() - xs.min() + 1),
         int(ys.max() - ys.min() + 1),
     ]
+
+
+def _plane_stats(hit: np.ndarray) -> tuple:
+    """(pixel count, ``_mask_bbox``) of a contiguous 2-D uint8 or bool mask
+    plane, nonzero = set.  Rows and columns are OR-reduced as 8-byte words
+    where the width allows (a word is nonzero where one of its bytes is, and
+    OR keeps each byte's column), and pixels are counted on the rows hit
+    alone: numpy loops that release the GIL, which the pool's deflates share."""
+    words = hit.view(np.uint64) if hit.shape[1] % 8 == 0 else hit
+    ys = np.flatnonzero(np.bitwise_or.reduce(words, axis=1))
+    if len(ys) == 0:
+        return 0, [-1, -1, -1, -1]
+    y0, y1 = int(ys[0]), int(ys[-1])
+    xs = np.flatnonzero(np.bitwise_or.reduce(words[y0:y1 + 1], axis=0).view(np.uint8))
+    n = int(np.count_nonzero(hit[y0:y1 + 1]))
+    return n, [int(xs[0]), y0, int(xs[-1] - xs[0] + 1), y1 - y0 + 1]
 
 
 def convert_scenewise_to_imagewise_ndds(

@@ -43,7 +43,11 @@ Differences from the reference, all deliberate:
     other error, a failed kernel launch among them, propagates (the
     reference drops the connection on any exception);
   * ``enable_compilation_cache`` is the kernels' build cache
-    (``utils/compile_cache.py``), not XLA's.
+    (``utils/compile_cache.py``), not XLA's;
+  * ``save2bop`` keeps the scene's gt-info records, computed by the BOP
+    writer's pool from the masks it wrote, as ``last_gt_info``, so that
+    ``run_generation`` writes scene_gt_info.json without reading the mask
+    PNGs back.
 """
 
 from __future__ import annotations
@@ -246,6 +250,7 @@ class PEGASUS:
             object_models=self.object_meshes,
             scene_id=scene_id,
             unit_scale=self.unit_scale,
+            collect_gt_info=True,  # save2bop hands the records on (last_gt_info)
         )
 
         self.viewport_cam_list = create_camera_trajectory(
@@ -515,11 +520,15 @@ class PEGASUS:
             self.last_render_stats["rle_fallback_frames"] = stats["rle_fallback_frames"]
 
     def save2bop(self) -> None:
-        """Finalize scene annotations."""
+        """Finalize scene annotations.  The scene's gt-info records, taken
+        from its masks in memory, stay as ``last_gt_info`` (scene_gt_info.json's
+        content; ``generate.finalize_dataset(gt_info=)`` writes it)."""
         if self.video is not None:
             self.video.close()
             self.video = None
-        self.pegasus_dataset.save_scene_annotations()
-        self.pegasus_dataset.close()
+        writer = self.pegasus_dataset
+        writer.save_scene_annotations()
+        writer.close()
+        self.last_gt_info = writer.scene_gt_info
         if not self.QUIET:
             print("Saved BOP data")

@@ -22,7 +22,8 @@ kernels take their plain torch versions:
 * the splat-sharded render at K = 40 on 2 and 3 CPU lanes against the
   unsharded render, <= 1e-5 per field (tests/test_torch_parallel.py);
 * the ``PEGASUS`` lifecycle with 40 objects (K = 41) against the
-  reference's, tests/test_torch_pegasus.py's gates.
+  reference's, tests/test_torch_pegasus.py's gates, and its gt-info records
+  from the masks in memory equal to ``calculate_gt_info``'s read-back.
 """
 
 import json
@@ -50,6 +51,7 @@ from pegasus_tpu_torch.assets.registry import Asset
 from pegasus_tpu_torch.camera import CameraBatch
 from pegasus_tpu_torch.interop import (CAMERA_FIELDS, CLOUD_FIELDS,
                                        camera_from_numpy, cloud_from_numpy)
+from pegasus_tpu_torch.io.bop_writer import calculate_gt_info
 from pegasus_tpu_torch.ops import render as trender
 from pegasus_tpu_torch.ops.binning import bin_splats
 from pegasus_tpu_torch.ops.composite_vjp import (N_GRAD, composite_tiles_backward_torch,
@@ -335,4 +337,10 @@ def test_pegasus_slice_crowded_matches_reference(tmp_path):
                     seen.add(int(rel.stem.split("_")[1]))
     assert worst_mask <= 0.005, worst_mask
     assert max(seen) >= 32, sorted(seen)  # an object past the 32nd channel is visible
+
+    # gt-info from the masks in memory equals the read-back of the written PNGs
+    calculate_gt_info(tmp_path / "port", "crowd", [1])
+    info = json.loads((got_root / "train/000001/scene_gt_info.json").read_text())
+    assert info == got.last_gt_info and len(info) == n_frames
+    assert any(r["px_count_visib"] > 0 for r in info["0"][32:])
 
