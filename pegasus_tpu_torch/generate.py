@@ -147,6 +147,8 @@ def run_generation(
             **getattr(pegasus, "last_render_stats", {}),
             # frames whose gt-info came from the masks in memory
             gt_info_frames=len(gt_info[scene_id]),
+            # poses applied, splats they wrote, object splats among those
+            **pegasus.last_pose_stats,
         )
 
     for scene_id in range(1, config.num_scenes + 1):

@@ -47,7 +47,13 @@ Differences from the reference, all deliberate:
   * ``save2bop`` keeps the scene's gt-info records, computed by the BOP
     writer's pool from the masks it wrote, as ``last_gt_info``, so that
     ``run_generation`` writes scene_gt_info.json without reading the mask
-    PNGs back.
+    PNGs back;
+  * posing runs under ``torch.profiler`` ranges named ``generate/pose``
+    (static: once per scene; dynamic: once per scene around the pose
+    sequence and once per chunk around its C poses), and
+    ``generate_dataset`` counts it in ``last_pose_stats``: ``poses`` (the
+    poses applied), ``posed_splats`` (splats written by them) and
+    ``moving_splats`` (the object splats among those).
 """
 
 from __future__ import annotations
@@ -58,6 +64,7 @@ from typing import Dict, List, Literal, Optional, Union
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from pegasus_tpu_torch.assets.registry import Asset
 from pegasus_tpu_torch.camera import CameraBatch
@@ -293,6 +300,7 @@ class PEGASUS:
             self.bullet_to_real_id[bid] = info.object_ID
 
         self.template = SceneTemplate.build(env_cloud, object_clouds, pad_to=self.splat_budget)
+        self._object_splats = sum(c.num_splats for c in object_clouds)
         self.bullet_ids = bullet_ids
         self._initial_step = 0 if self.mode == "dynamic" else traj.num_steps - 1
 
@@ -390,13 +398,20 @@ class PEGASUS:
         chunk = max(1, min(self.frame_chunk, n_frames))
         cams = CameraBatch.stack(self.viewport_cam_list)
         dynamic = self.mode == "dynamic"
-        if dynamic:  # every frame's pose, one copy each way per scene
-            body_Rs, body_ts = self._body_poses_at(self._initial_step + np.arange(n_frames))
-            poses_np = (body_Rs.cpu().numpy(), body_ts.cpu().numpy())
-        else:
-            body_R, body_t = self._body_poses_at(self._initial_step)
-            scene = pose_scene(self.template, body_R, body_t)
-            static_poses = (body_R.cpu().numpy(), body_t.cpu().numpy())
+        with record_function("generate/pose"):
+            if dynamic:  # every frame's pose, one copy each way per scene
+                body_Rs, body_ts = self._body_poses_at(self._initial_step + np.arange(n_frames))
+                poses_np = (body_Rs.cpu().numpy(), body_ts.cpu().numpy())
+            else:
+                body_R, body_t = self._body_poses_at(self._initial_step)
+                scene = pose_scene(self.template, body_R, body_t)
+                static_poses = (body_R.cpu().numpy(), body_t.cpu().numpy())
+        n_poses = n_frames if dynamic else 1
+        self.last_pose_stats = {
+            "poses": n_poses,
+            "posed_splats": n_poses * self.template.cloud.num_splats,
+            "moving_splats": n_poses * self._object_splats,
+        }
         frozen_gt = (
             tuple(a.cpu().numpy() for a in self._body_poses_at(self._initial_step))
             if (dynamic and self.freeze_dynamic_gt_pose)
@@ -490,7 +505,8 @@ class PEGASUS:
         for k, lo in enumerate(range(0, n_frames, chunk)):
             hi = min(lo + chunk, n_frames)
             if dynamic:
-                scene = pose_scene(self.template, body_Rs[lo:hi], body_ts[lo:hi])
+                with record_function("generate/pose"):
+                    scene = pose_scene(self.template, body_Rs[lo:hi], body_ts[lo:hi])
             enc = encode_frame(render_chunk(
                 scene, cams[lo:hi], self._semantic_colors_dev, background=self.background,
                 rasterize_fn=self.rasterize_fn, **self.rasterize_kwargs,
