@@ -25,7 +25,12 @@ Differences from the reference, all deliberate:
   * exact tile binning cannot overflow, so ``last_render_stats`` has no
     ``binning_overflow_frames`` and there is no overflow warning;
   * preview videos (``VideoStreams``, which needs cv2) are built only when
-    ``generate_dataset(save_video=True)``;
+    ``generate_dataset(save_video=True)``, and their frames are made and
+    encoded on the streams' worker thread: the frame loop hands over the
+    frame's rgb, depth_mm, semantic image, camera and object centres, and
+    ``last_render_stats`` gets the streams' counters ``video_frames``,
+    ``video_wait_s`` and (from ``save2bop``, which joins the worker)
+    ``video_drain_s``;
   * the tail chunk is just shorter: nothing is compiled for a chunk size,
     so the reference's padding to a full chunk is not needed, and its
     ``readback_bytes`` counts no padding frames;
@@ -58,6 +63,7 @@ Differences from the reference, all deliberate:
 
 from __future__ import annotations
 
+import functools
 import time
 from pathlib import Path
 from typing import Dict, List, Literal, Optional, Union
@@ -84,6 +90,19 @@ from pegasus_tpu_torch.scene.composition import (SceneTemplate, pose_scene,
 from pegasus_tpu_torch.scene.trajectory import Trajectory
 from pegasus_tpu_torch.utils.compile_cache import enable_compilation_cache
 from pegasus_tpu_torch.utils.colors import generate_colors
+
+
+def _video_frame(rgb_u8, depth_mm, sem_u8, centers, K, cam_R, cam_t, colors) -> dict:
+    """``VideoStreams.write_frame``'s keywords for one rendered frame, made
+    on the video worker with the reference's arithmetic: the object-centre
+    overlay, depth in metres, the semantic image as floats in [0, 1]."""
+    from pegasus_tpu_torch.scene.video import draw_object_centers
+
+    return dict(
+        rgb=rgb_u8, depth=depth_mm.astype(np.float32) / 1000.0,
+        seg=sem_u8.astype(np.float32) / 255.0,
+        center_image=draw_object_centers(rgb_u8, centers, K, cam_R, cam_t, colors),
+    )
 
 
 class PEGASUS:
@@ -387,6 +406,9 @@ class PEGASUS:
         writer = self.pegasus_dataset
         n_frames = len(self.viewport_cam_list)
         n_objects = len(self.semantic_colors)
+        if self.video is not None:  # left open by a scene that failed before save2bop
+            video, self.video = self.video, None
+            video.close()
         if save_video:
             from pegasus_tpu_torch.scene.video import VideoStreams
 
@@ -442,11 +464,11 @@ class PEGASUS:
                     raw, (c, h, w), n_objects, rle_max_runs(c, h, w, n_planes),
                     palette=self.semantic_colors,
                     fallback_sparse=lambda: fetch_fallback(sparse_dev),
-                    with_depth_m=save_video,
+                    with_depth_m=False,
                 )
             else:
                 data = unpack_frame_bytes(
-                    raw, n_objects, palette=self.semantic_colors, with_depth_m=save_video
+                    raw, n_objects, palette=self.semantic_colors, with_depth_m=False
                 )
             # rgb is a view of the pinned buffer, which a later chunk
             # reuses: the writer's pool gets a copy
@@ -483,22 +505,15 @@ class PEGASUS:
                             for bid in self.bullet_ids
                         ],
                     )
-                if save_video:
-                    from pegasus_tpu_torch.scene.video import draw_object_centers
-
+                if save_video:  # the video worker makes and encodes the frame
                     centers = (
                         np.stack([pivots_np[bid] + body_t_np[bid] for bid in self.bullet_ids])
                         if self.bullet_ids else np.zeros((0, 3))
                     )
-                    center_img = draw_object_centers(
-                        rgb_u8, centers, np.asarray(writer.K), cam_R, cam_t,
-                        self.semantic_colors,
-                    )
-                    self.video.write_frame(
-                        rgb=rgb_u8, depth=data["depth_m"][j],
-                        seg=data["sem_u8"][j].astype(np.float32) / 255.0,
-                        center_image=center_img,
-                    )
+                    self.video.submit(functools.partial(
+                        _video_frame, rgb_u8, data["depth_mm"][j], data["sem_u8"][j], centers,
+                        np.asarray(writer.K), cam_R, cam_t, self.semantic_colors,
+                    ))
                 progress.update(1)
 
         pending = []
@@ -534,14 +549,18 @@ class PEGASUS:
         }
         if compact:
             self.last_render_stats["rle_fallback_frames"] = stats["rle_fallback_frames"]
+        if save_video:  # video_drain_s comes with save2bop's close
+            self.last_render_stats.update(
+                video_frames=self.video.frames, video_wait_s=round(self.video.wait_s, 4))
 
     def save2bop(self) -> None:
         """Finalize scene annotations.  The scene's gt-info records, taken
         from its masks in memory, stay as ``last_gt_info`` (scene_gt_info.json's
         content; ``generate.finalize_dataset(gt_info=)`` writes it)."""
         if self.video is not None:
-            self.video.close()
-            self.video = None
+            video, self.video = self.video, None
+            video.close()
+            self.last_render_stats["video_drain_s"] = round(video.drain_s, 4)
         writer = self.pegasus_dataset
         writer.save_scene_annotations()
         writer.close()

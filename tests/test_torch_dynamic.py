@@ -3,8 +3,9 @@
 (``h100_bench/reference/generation_dynamic.py``: every frame's annotations
 at that frame's step, the sampled frames each posed by its own pose alone),
 within ``pegaset_dynamic``'s limits; each fault of posing crosses one of
-them; posing's ``generate/pose`` ranges and counters; and the rotation of a
-splat's colour by its SH bands.
+them; posing's ``generate/pose`` ranges and counters; the preview videos
+encoded off the frame loop (both modes); and the rotation of a splat's
+colour by its SH bands.
 
 Torch only, on the CPU: 64x48, 2 cameras x 6 steps (a chunk of 8 and a
 tail of 4), 2 objects of 400 splats on a 3,000-splat environment.
@@ -137,6 +138,51 @@ def test_pose_ranges_and_counters(name, mode, cells, monkeypatch):
     assert (rec["poses"], rec["posed_splats"], rec["moving_splats"]) == (
         poses, poses * rec["splats"], poses * 2 * a["obj_splats"])
     assert "poses" not in ctx["pegasus"].last_render_stats
+    shutil.rmtree(work / config.dataset_name)
+
+
+@pytest.mark.parametrize("name,mode", [("gen.dynamic", "dynamic"), ("gen.static", "static")])
+def test_videos_are_encoded_off_the_frame_loop(name, mode, cells, monkeypatch):
+    """With ``save_video``, each scene writes its five mp4s of ``n_frames``
+    frames on the streams' worker: no ``cv2.VideoWriter.write`` runs on the
+    thread that runs the frame loop, and the stats record counts the frames
+    handed over and the seconds waited."""
+    import threading
+
+    import cv2
+
+    cell, _, ctx, work = cells(name)
+    config = dataclasses.replace(ctx["base"], dataset_name=f"video_{mode}", min_num_objects=2,
+                                 max_num_objects=2, seed=5, save_video=True)
+    ctx["pegasus"].rng = np.random.default_rng(5)
+    writes, real = [], cv2.VideoWriter
+
+    class Recorded:
+        def __init__(self, *args):
+            self.writer = real(*args)
+
+        def write(self, frame):
+            writes.append(threading.get_ident())
+            self.writer.write(frame)
+
+        def release(self):
+            self.writer.release()
+
+    monkeypatch.setattr(cv2, "VideoWriter", Recorded)
+    stats = ctx["run_generation"](config, ctx["envs"], ctx["objs"], pegasus=ctx["pegasus"], device=CPU)
+    monkeypatch.undo()
+    n_frames = config.num_cameras * config.num_camera_interpolation_steps
+    rec = stats.records[-1]
+    assert rec["frames"] == rec["video_frames"] == n_frames
+    assert rec["video_wait_s"] >= 0 and rec["video_drain_s"] >= 0
+    assert len(writes) == 5 * n_frames and threading.get_ident() not in writes
+    videos = work / config.dataset_name / "video" / "000001"
+    for stream in ("rgb", "object_center", "seg", "rgb_seg", "depth"):
+        cap, count = cv2.VideoCapture(str(videos / f"{stream}_video.mp4")), 0
+        while cap.read()[0]:
+            count += 1
+        cap.release()
+        assert count == n_frames, stream
     shutil.rmtree(work / config.dataset_name)
 
 
