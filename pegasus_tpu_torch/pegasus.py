@@ -105,6 +105,122 @@ def _video_frame(rgb_u8, depth_mm, sem_u8, centers, K, cam_R, cam_t, colors) -> 
     )
 
 
+# -- one scene's steps, shared with the sharded generation (parallel/generation.py) --
+
+
+def _draw_scene(rng, env_list, obj_list, min_num_objects, max_num_objects, *, asset_folder,
+                dataset_dir, scene_id, simulation_steps, max_bodies, device):
+    """The reference's draws from ``rng``, in its order: environment,
+    object count, the choice of objects, the engine's seed, then one start
+    position per object.  Returns (environment, chosen objects, the engine
+    with their bodies added; its trajectory JSON goes under
+    ``dataset_dir``/engine)."""
+    min_num_objects = min(min_num_objects, len(obj_list))
+    max_num_objects = min(max_num_objects, len(obj_list))
+    env = env_list[int(rng.integers(0, len(env_list)))]
+    n_objects = int(rng.integers(min_num_objects, max_num_objects + 1))
+    selected = [obj_list[i] for i in rng.choice(len(obj_list), n_objects, replace=False).tolist()]
+    engine = PhysicsEngine(
+        asset_folder=asset_folder,
+        output_path_json=str(Path(dataset_dir, "engine", f"{scene_id:06d}_simulation_steps.json")),
+        simulation_steps=simulation_steps,
+        seed=int(rng.integers(0, 2**31)),
+        max_bodies=max_bodies,
+        device=device,
+    )
+    engine.add_object(env, start_pos=env.START_POSITION_PYBULLET)
+    for obj in selected:
+        engine.add_object(obj, start_pos=env.define_start_pos(rng))
+    return env, selected, engine
+
+
+def _scene_cameras(env_entry: dict, settings, rng, device):
+    """The camera trajectory over an environment's COLMAP poses
+    (``env_entry``: its preload entry), with the render and trajectory
+    settings of ``settings`` (a ``PEGASUS`` or a ``GenerationConfig``).
+    Returns (cameras, the writer's ``camera_intr``, host copies of the
+    extrinsics for scene_gt: one transfer per scene)."""
+    cam_intr = env_entry["cam_intr"]
+    first = cam_intr[min(cam_intr.keys())]
+    fx, fy, _, _ = colmap_io.colmap_intrinsics(first)
+    cams = create_camera_trajectory(
+        cam_extr=env_entry["cam_extr"],
+        focal_x=fx,
+        intr_width=first.width,
+        intr_height=first.height,
+        render_width=settings.render_width,
+        render_height=settings.render_height,
+        num_cameras=settings.num_cameras,
+        num_interpolation_steps=settings.num_camera_interpolation_steps,
+        mode=settings.camera_trajectory_mode,
+        rng=rng,
+        device=device,
+    )
+    camera_intr = {"fx": fx, "fy": fy, "width": first.width, "height": first.height}
+    return cams, camera_intr, [(c.R_w2c.cpu().numpy(), c.t_w2c.cpu().numpy()) for c in cams]
+
+
+def _render_chunks(template, body_R, body_t, dynamic: bool, cams: CameraBatch, colors,
+                   frame_chunk: int, background, rasterize_fn=None, rasterize_kwargs=None,
+                   serve_gui=None):
+    """A scene's frames in chunks of ``frame_chunk`` (the tail chunk just
+    shorter): an iterator of (lo, hi, ``encode_frame`` of the chunk's
+    ``render_chunk``).  Static: ``body_R`` [B, 3, 3], ``body_t`` [B, 3]
+    pose the scene once, here at the call (inside the caller's
+    ``generate/pose`` range, if any); dynamic: [F, B, ...], posed once per
+    chunk (C poses at once) under a ``generate/pose`` range each.
+    ``serve_gui``, if given, is called once per chunk with the posed scene
+    (dynamic: its last pose).  The posed scene is not yielded: a caller's
+    loop variable would keep a dynamic chunk's C posed clouds alive through
+    the next chunk's render."""
+    n_frames = len(cams)
+    chunk = max(1, min(frame_chunk, n_frames))
+    static_scene = None if dynamic else pose_scene(template, body_R, body_t)
+
+    def chunks():
+        scene = static_scene
+        for lo in range(0, n_frames, chunk):
+            hi = min(lo + chunk, n_frames)
+            if dynamic:
+                with record_function("generate/pose"):
+                    scene = pose_scene(template, body_R[lo:hi], body_t[lo:hi])
+            enc = encode_frame(render_chunk(
+                scene, cams[lo:hi], colors, background=background,
+                rasterize_fn=rasterize_fn, **(rasterize_kwargs or {}),
+            ))
+            if serve_gui is not None:
+                serve_gui(scene.pose_frame(-1) if dynamic else scene)
+            yield lo, hi, enc
+    return chunks()
+
+
+def _write_frame(writer: BOPDatasetWriter, i: int, planes: dict, data_points, cam_extr,
+                 objects, gt_R, gt_t) -> None:
+    """Frame ``i``'s BOP record from its unpacked ``planes``: its camera,
+    the requested modalities (``rgb`` writes depth too, as the reference
+    does), and its ground truth with ``cam_extr`` = (R, t) world-to-camera
+    and, per (bullet id, object id) of ``objects``, the pose
+    ``gt_R[bullet id]``, ``gt_t[bullet id]``."""
+    writer.add_scene_camera(i)
+    writer.write_training_data(
+        frame_id=i,
+        rgb=planes["rgb_u8"] if "rgb" in data_points else None,
+        depth_mm=planes["depth_mm"] if ("depth" in data_points or "rgb" in data_points) else None,
+        mask_amodal=planes["mask_amodal"] if "seg_sil" in data_points else None,
+        mask_visib=planes["mask_visib"] if "seg_vis" in data_points else None,
+        sem_mask=planes["sem_u8"] if "sem_seg" in data_points else None,
+    )
+    writer.add_scene_gt(
+        frame_id=i,
+        cam_R_w2c=cam_extr[0],
+        cam_t_w2c=cam_extr[1],
+        object_poses=[
+            {"bullet_id": bid, "obj_id": obj_id, "R_init": gt_R[bid], "t_init": gt_t[bid]}
+            for bid, obj_id in objects
+        ],
+    )
+
+
 class PEGASUS:
     """End-to-end 6DoF pose dataset generator."""
 
@@ -217,38 +333,21 @@ class PEGASUS:
         draws from ``self.rng`` are the reference's, in its order:
         environment, object count, the choice of objects, the engine's
         seed, then one start position per object."""
-        engine_path = (
-            Path(self.dataset_base_path)
-            / dataset_name
-            / "engine"
-            / f"{scene_id:06d}_simulation_steps.json"
-        )
         if not random:
             self.rng = np.random.default_rng(42)
-
-        min_num_objects = min(min_num_objects, len(obj_list))
-        max_num_objects = min(max_num_objects, len(obj_list))
-
-        select_env = env_list[int(self.rng.integers(0, len(env_list)))]
-        self.selected_env_name = select_env.object_name
-        n_objects = int(self.rng.integers(min_num_objects, max_num_objects + 1))
-        idx = self.rng.choice(len(obj_list), n_objects, replace=False).tolist()
-        selected = [obj_list[i] for i in idx]
-        self.selected_object_ids = [int(o.ID) for o in selected]
-
-        engine = PhysicsEngine(
+        select_env, selected, engine = _draw_scene(
+            self.rng, env_list, obj_list, min_num_objects, max_num_objects,
             asset_folder=self.urdf_asset_folder,
-            output_path_json=str(engine_path),
+            dataset_dir=Path(self.dataset_base_path) / dataset_name,
+            scene_id=scene_id,
             simulation_steps=self.simulation_steps,
-            seed=int(self.rng.integers(0, 2**31)),
             # auto-size the body capacity: rich scenes (30 objects) must
             # not hit the static default cap
-            max_bodies=max(MAX_BODIES, max_num_objects + 1),
+            max_bodies=max(MAX_BODIES, min(max_num_objects, len(obj_list)) + 1),
             device=self.device,
         )
-        engine.add_object(select_env, start_pos=select_env.START_POSITION_PYBULLET)
-        for obj in selected:
-            engine.add_object(obj, start_pos=select_env.define_start_pos(self.rng))
+        self.selected_env_name = select_env.object_name
+        self.selected_object_ids = [int(o.ID) for o in selected]
         self.trajectory = engine.simulate()
         self.physics_file = engine.trajectory_path
         self.py_engine = engine
@@ -262,15 +361,13 @@ class PEGASUS:
         if not hasattr(self, "trajectory"):
             self.trajectory = Trajectory.from_json(self.physics_file)
 
-        env_entry = self.gaussian_environment_pre_load[self.selected_env_name]
-        cam_intr = env_entry["cam_intr"]
-        first = cam_intr[min(cam_intr.keys())]
-        fx, fy, _, _ = colmap_io.colmap_intrinsics(first)
-
+        self.viewport_cam_list, camera_intr, self._cam_extr_np = _scene_cameras(
+            self.gaussian_environment_pre_load[self.selected_env_name], self, self.rng, self.device
+        )
         self.pegasus_dataset = BOPDatasetWriter(
             dataset_name=dataset_name,
             dataset_output_path=Path(self.dataset_base_path),
-            camera_intr={"fx": fx, "fy": fy, "width": first.width, "height": first.height},
+            camera_intr=camera_intr,
             render_width=self.render_width,
             render_height=self.render_height,
             object_models=self.object_meshes,
@@ -278,24 +375,6 @@ class PEGASUS:
             unit_scale=self.unit_scale,
             collect_gt_info=True,  # save2bop hands the records on (last_gt_info)
         )
-
-        self.viewport_cam_list = create_camera_trajectory(
-            cam_extr=env_entry["cam_extr"],
-            focal_x=fx,
-            intr_width=first.width,
-            intr_height=first.height,
-            render_width=self.render_width,
-            render_height=self.render_height,
-            num_cameras=self.num_cameras,
-            num_interpolation_steps=self.num_camera_interpolation_steps,
-            mode=self.camera_trajectory_mode,
-            rng=self.rng,
-            device=self.device,
-        )
-        # host copies of the extrinsics for scene_gt: one transfer per scene
-        self._cam_extr_np = [
-            (c.R_w2c.cpu().numpy(), c.t_w2c.cpu().numpy()) for c in self.viewport_cam_list
-        ]
 
     # -- scene composition ------------------------------------------------------------
 
@@ -417,17 +496,17 @@ class PEGASUS:
             )
             pivots_np = self.template.pivots.cpu().numpy()
 
-        chunk = max(1, min(self.frame_chunk, n_frames))
         cams = CameraBatch.stack(self.viewport_cam_list)
         dynamic = self.mode == "dynamic"
-        with record_function("generate/pose"):
-            if dynamic:  # every frame's pose, one copy each way per scene
-                body_Rs, body_ts = self._body_poses_at(self._initial_step + np.arange(n_frames))
-                poses_np = (body_Rs.cpu().numpy(), body_ts.cpu().numpy())
-            else:
-                body_R, body_t = self._body_poses_at(self._initial_step)
-                scene = pose_scene(self.template, body_R, body_t)
-                static_poses = (body_R.cpu().numpy(), body_t.cpu().numpy())
+        with record_function("generate/pose"):  # dynamic: every frame's pose, one copy each way
+            body_R, body_t = self._body_poses_at(
+                self._initial_step + np.arange(n_frames) if dynamic else self._initial_step
+            )
+            chunks = _render_chunks(self.template, body_R, body_t, dynamic, cams,
+                                    self._semantic_colors_dev, self.frame_chunk, self.background,
+                                    self.rasterize_fn, self.rasterize_kwargs,
+                                    self._serve_gui if self.publish2gui else None)
+            poses_np = (body_R.cpu().numpy(), body_t.cpu().numpy())
         n_poses = n_frames if dynamic else 1
         self.last_pose_stats = {
             "poses": n_poses,
@@ -439,6 +518,7 @@ class PEGASUS:
             if (dynamic and self.freeze_dynamic_gt_pose)
             else None
         )
+        objects = [(bid, self.bullet_to_real_id.get(bid, bid)) for bid in self.bullet_ids]
 
         stats = {"readback_bytes": 0, "fetch_stall_s": 0.0, "rle_fallback_frames": 0}
         progress = tqdm.tqdm(total=n_frames, disable=self.QUIET)
@@ -472,60 +552,30 @@ class PEGASUS:
                 )
             # rgb is a view of the pinned buffer, which a later chunk
             # reuses: the writer's pool gets a copy
-            rgb_chunk = data["rgb_u8"].copy()
+            data["rgb_u8"] = data["rgb_u8"].copy()
             for j in range(c):
                 i = lo + j
-                body_R_np, body_t_np = (
-                    (poses_np[0][i], poses_np[1][i]) if dynamic else static_poses
-                )
-                rgb_u8 = rgb_chunk[j]
-                cam_R, cam_t = self._cam_extr_np[i]
-                writer.add_scene_camera(i)
+                planes = {key: plane[j] for key, plane in data.items()}
+                body_R_np, body_t_np = (poses_np[0][i], poses_np[1][i]) if dynamic else poses_np
                 if save_bop:
-                    writer.write_training_data(
-                        frame_id=i,
-                        rgb=rgb_u8 if "rgb" in data_points else None,
-                        depth_mm=data["depth_mm"][j] if ("depth" in data_points or "rgb" in data_points) else None,
-                        mask_amodal=data["mask_amodal"][j] if "seg_sil" in data_points else None,
-                        mask_visib=data["mask_visib"][j] if "seg_vis" in data_points else None,
-                        sem_mask=data["sem_u8"][j] if "sem_seg" in data_points else None,
-                    )
                     gt_R, gt_t = frozen_gt if frozen_gt is not None else (body_R_np, body_t_np)
-                    writer.add_scene_gt(
-                        frame_id=i,
-                        cam_R_w2c=cam_R,
-                        cam_t_w2c=cam_t,
-                        object_poses=[
-                            {
-                                "bullet_id": bid,
-                                "obj_id": self.bullet_to_real_id.get(bid, bid),
-                                "R_init": gt_R[bid],
-                                "t_init": gt_t[bid],
-                            }
-                            for bid in self.bullet_ids
-                        ],
-                    )
+                    _write_frame(writer, i, planes, data_points, self._cam_extr_np[i], objects,
+                                 gt_R, gt_t)
+                else:
+                    writer.add_scene_camera(i)
                 if save_video:  # the video worker makes and encodes the frame
                     centers = (
                         np.stack([pivots_np[bid] + body_t_np[bid] for bid in self.bullet_ids])
                         if self.bullet_ids else np.zeros((0, 3))
                     )
                     self.video.submit(functools.partial(
-                        _video_frame, rgb_u8, data["depth_mm"][j], data["sem_u8"][j], centers,
-                        np.asarray(writer.K), cam_R, cam_t, self.semantic_colors,
+                        _video_frame, planes["rgb_u8"], planes["depth_mm"], planes["sem_u8"],
+                        centers, np.asarray(writer.K), *self._cam_extr_np[i], self.semantic_colors,
                     ))
                 progress.update(1)
 
         pending = []
-        for k, lo in enumerate(range(0, n_frames, chunk)):
-            hi = min(lo + chunk, n_frames)
-            if dynamic:
-                with record_function("generate/pose"):
-                    scene = pose_scene(self.template, body_Rs[lo:hi], body_ts[lo:hi])
-            enc = encode_frame(render_chunk(
-                scene, cams[lo:hi], self._semantic_colors_dev, background=self.background,
-                rasterize_fn=self.rasterize_fn, **self.rasterize_kwargs,
-            ))
+        for k, (lo, hi, enc) in enumerate(chunks):
             sparse_dev = None
             if compact:
                 dense, sparse = split_frame_planes(enc)
@@ -535,8 +585,6 @@ class PEGASUS:
             else:
                 packed = pack_frame_bytes(enc)
             host, event = self._to_host(k % DEPTH, packed)
-            if self.publish2gui:
-                self._serve_gui(scene.pose_frame(-1) if dynamic else scene)
             pending.append((lo, hi - lo, host, event, sparse_dev))
             if len(pending) == DEPTH:
                 write(*pending.pop(0))  # overlaps the newer chunks' device work

@@ -14,7 +14,6 @@ drops of the same scene as ONE batched program.
 
 from __future__ import annotations
 
-import json
 import os
 from pathlib import Path
 from typing import List, Union
@@ -690,6 +689,22 @@ class PhysicsEngine:
                 write_png(out / f"debug_{fi:04d}.png", frames[fi])
         return frames
 
+    def _trajectory(self, times_t: np.ndarray, times_q: np.ndarray) -> Trajectory:
+        """The scene's ``Trajectory`` (the trajectory JSON's content): the
+        bodies' asset infos from ``asset_list`` and their motion, times_t
+        [B, T, 3] and times_q [B, T, 4] xyzw."""
+        env_name, env = next(iter(self.asset_list["environment"].items()))
+        objects = {
+            name: AssetInfo(name=name, class_name=d["class_name"], bullet_ids=d["bullet_id"],
+                            object_ID=d.get("object_ID"), center_of_mass=d.get("center_of_mass"))
+            for name, d in self.asset_list["object"].items()
+        }
+        return Trajectory(
+            environment=AssetInfo(name=env_name, class_name=env["class_name"],
+                                  bullet_ids=env["bullet_id"]),
+            objects=objects, times_t=times_t, times_q=times_q,
+        )
+
     def simulate(
         self, write_json: bool = True, debug_camera: bool = False
     ) -> Trajectory:
@@ -716,25 +731,7 @@ class PhysicsEngine:
         times_t = np.transpose(pos, (1, 0, 2))
         times_q = np.roll(np.transpose(rot, (1, 0, 2)), -1, axis=-1)  # xyzw
 
-        env_name = list(self.asset_list["environment"].keys())[0]
-        env_info = AssetInfo(
-            name=env_name,
-            class_name=self.asset_list["environment"][env_name]["class_name"],
-            bullet_ids=self.asset_list["environment"][env_name]["bullet_id"],
-        )
-        objects = {
-            name: AssetInfo(
-                name=name,
-                class_name=d["class_name"],
-                bullet_ids=d["bullet_id"],
-                object_ID=d.get("object_ID"),
-                center_of_mass=d.get("center_of_mass"),
-            )
-            for name, d in self.asset_list["object"].items()
-        }
-        trajectory = Trajectory(
-            environment=env_info, objects=objects, times_t=times_t, times_q=times_q
-        )
+        trajectory = self._trajectory(times_t, times_q)
         if write_json:
             trajectory.to_json(self.trajectory_path)
         if debug_camera:

@@ -14,6 +14,7 @@ that rendering it alone gives, so:
 * the BOP trees ``generate_dataset`` writes at ``frame_chunk`` 1, 3 and 8
   are byte-identical (4 frames: chunks of 1, 3 + 1 and 4), static, dynamic
   and with ``compact_readback``;
+* while a chunk renders, no earlier chunk's posed scene is alive;
 * ``run_generation`` hands ``config.frame_chunk`` to ``PEGASUS``.
 
 Against the JAX package at the same ``frame_chunk``:
@@ -187,6 +188,40 @@ def test_generate_dataset_trees_identical_across_frame_chunk(recorded, tmp_path,
         assert stats[1]["readback_bytes"] == stats[3]["readback_bytes"] == stats[8]["readback_bytes"]
     else:
         assert all(s["rle_fallback_frames"] == 0 for s in stats.values())
+
+
+@pytest.mark.parametrize("mode", ["static", "dynamic"])
+def test_chunk_loop_keeps_one_posed_scene(recorded, tmp_path, monkeypatch, mode):  # noqa: F811
+    """While a chunk renders, no earlier chunk's posed scene is alive: a
+    dynamic chunk's posed clouds (C copies of the whole scene) held through
+    the next chunk's render would double the loop's peak device memory."""
+    import weakref
+
+    from pegasus_tpu_torch import pegasus
+
+    posed, alive = [], []
+    pose, render = pegasus.pose_scene, pegasus.render_chunk
+
+    def recording_pose(*a, **k):
+        scene = pose(*a, **k)
+        posed.append(weakref.ref(scene))
+        return scene
+
+    def counting_render(scene, *a, **k):
+        alive.append(sum(ref() is not None for ref in posed))
+        return render(scene, *a, **k)
+
+    monkeypatch.setattr(pegasus, "pose_scene", recording_pose)
+    monkeypatch.setattr(pegasus, "render_chunk", counting_render)
+    root, physics_file, env_name = recorded
+    env, objs = _assets(root, Asset)
+    peg = PEGASUS(gs_env_list=[env], gs_object_list=objs, device="cpu", frame_chunk=1,
+                  **_config(root, tmp_path, mode, "random"))
+    peg.physics_file, peg.selected_env_name = physics_file, env_name
+    peg.init("slice", 1)
+    peg.init_start_position()
+    peg.generate_dataset(MODALITIES, save_bop=False, save_video=False)
+    assert len(posed) == (4 if mode == "dynamic" else 1) and alive == [1] * 4
 
 
 def test_run_generation_hands_frame_chunk_to_pegasus(monkeypatch, tmp_path):

@@ -76,7 +76,8 @@ def _summary_read_back(out: str) -> int:
     ("static", [p for p in ALL_POINTS if p != "seg_sil"]),  # no amodal masks
     ("static", [p for p in ALL_POINTS if p != "seg_vis"]),  # no visible masks
     ("dynamic", ALL_POINTS),
-], ids=["static", "no_seg_sil", "no_seg_vis", "dynamic"])
+    ("static", [p for p in ALL_POINTS if p != "depth"]),  # rgb writes depth all the same
+], ids=["static", "no_seg_sil", "no_seg_vis", "dynamic", "no_depth"])
 def test_scene_gt_info_from_memory_is_the_read_back(root, tmp_path, mode, points):
     envs, objs = _assets(root)
     config = _config(root, tmp_path / "out", mode=mode, render_data_points=points)
@@ -88,6 +89,7 @@ def test_scene_gt_info_from_memory_is_the_read_back(root, tmp_path, mode, points
         assert written == _read_back(scene, tmp_path), sid
         info = json.loads(written)
         assert len(info) == N_FRAMES
+        assert len(list((scene / "depth").glob("*.png"))) == N_FRAMES  # rgb writes depth too
         if "seg_sil" not in points:
             assert all(r["bbox_obj"] == [-1] * 4 and r["px_count_all"] == 0 and r["visib_fract"] == 0.0
                        for recs in info.values() for r in recs)
