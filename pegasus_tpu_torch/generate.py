@@ -142,8 +142,8 @@ def run_generation(
             env=pegasus.selected_env_name,
             object_ids=pegasus.selected_object_ids,
             **{f"t_{k}": v for k, v in timers.items()},
-            # device->host transfer accounting from the render loop
-            # (bytes fetched + time blocked on fetches)
+            # device->host transfer accounting from the render loop (bytes
+            # fetched, time blocked on fetches, the hand-off's counters)
             **getattr(pegasus, "last_render_stats", {}),
             # frames whose gt-info came from the masks in memory
             gt_info_frames=len(gt_info[scene_id]),

@@ -227,15 +227,18 @@ class BOPDatasetWriter:
         frame_id: int,
         rgb: np.ndarray | None = None,  # [H,W,3] uint8
         depth_m: np.ndarray | None = None,  # [H,W] float meters
-        mask_amodal: np.ndarray | None = None,  # [H,W,K] bool
-        mask_visib: np.ndarray | None = None,  # [H,W,K] bool
+        mask_amodal: np.ndarray | None = None,  # [H,W,K] bool, or [K,H,W] uint8 0/255
+        mask_visib: np.ndarray | None = None,  # [H,W,K] bool, or [K,H,W] uint8 0/255
         sem_mask: np.ndarray | None = None,  # [H,W,3] uint8
         depth_mm: np.ndarray | None = None,  # [H,W] uint16 (pre-encoded)
         asynchronous: bool = True,
     ) -> None:
         """Write one frame's images.  Depth goes out as uint16 millimeters
         (reference: pegasus.py:355); per-object masks as binary PNGs named
-        {frame:06d}_{channel:06d}.png (reference: pegasus_bop.py:426-434)."""
+        {frame:06d}_{channel:06d}.png (reference: pegasus_bop.py:426-434).
+        Masks come as [H, W, K] (bool, or any dtype with nonzero = set) or,
+        writer-ready, as uint8 0/255 planes [K, H, W] at the render size,
+        which are written as they are."""
 
         def _mask_u8(m):
             # bool -> 0/255 with ONE temporary (dtype view is free);
@@ -247,12 +250,15 @@ class BOPDatasetWriter:
         def write_masks(path, masks):
             """One PNG per channel; with gt-info collected, each channel's
             (pixel count, bbox) of the plane as a PNG reader sees it (> 127)."""
+            ready = masks.dtype == np.uint8 and masks.shape[1:] == (self.render_height,
+                                                                    self.render_width)
             stats = []
-            for k in range(masks.shape[-1]):
-                plane = _mask_u8(masks[..., k])
+            for k in range(masks.shape[0] if ready else masks.shape[-1]):
+                plane = masks[k] if ready else _mask_u8(masks[..., k])
                 write_png(path / f"{frame_id:06d}_{k:06d}.png", plane, compression=1)
                 if self._mask_stats is not None:
-                    stats.append(_plane_stats(plane if masks.dtype == np.bool_ else plane > 127))
+                    stats.append(_plane_stats(plane if ready or masks.dtype == np.bool_
+                                              else plane > 127))
             return stats
 
         # per-modality deflate levels, tuned for single-core hosts (the

@@ -6,16 +6,28 @@ reference's quirk), amodal silhouettes and the semantic image.  Masks are
 exact functions of per-object compositing weights; the 0.9 threshold
 mirrors the reference's 0.1 colour-distance acceptance.
 
-``encode_frame`` and ``pack_frame_bytes`` run on the device, so one uint8
-tensor per frame crosses to the host; ``unpack_frame_bytes`` and
-``_unpack_planes`` are the reference's numpy host decode, copied.  The RLE
-compact readback (``split_frame_planes``, ``rle_pack_chunk`` on the device,
-``rle_unpack_chunk`` on the host) writes the reference's bytes.
+``encode_frame`` runs on the device, and one uint8 tensor per chunk crosses
+to the host in one of three layouts, all giving the same files:
+
+  * writer-ready (``pack_writer_planes`` on the device, ``writer_planes`` on
+    the host), ``PEGASUS.generate_dataset``'s default: every plane the BOP
+    writer and the video worker read, in the bytes they read them (uint16
+    depth, rgb, the semantic image, one 0/255 plane per object mask), so the
+    host only slices views.  8 + 2K bytes a pixel;
+  * bit-packed (``pack_frame_bytes``, then ``unpack_frame_bytes`` /
+    ``_unpack_planes``, the reference's numpy host decode, copied): 5 +
+    ceil(2K/8) bytes a pixel.  The sharded generation keeps it, since it
+    holds a whole scene per lane in pinned memory until its writer runs;
+  * the RLE compact readback (``split_frame_planes``, ``rle_pack_chunk`` on
+    the device, ``rle_unpack_chunk`` on the host), the reference's bytes,
+    taken with ``PEGASUS(compact_readback=True)``: fewest bytes over the
+    link, at the cost of a host decode.
 
 A chunk of C frames (``render_chunk``, the reference's ``lax.map`` chunk
 program) carries a leading [C] axis through ``decode_modalities``,
 ``encode_frame``, ``pack_frame_bytes`` and ``split_frame_planes``, which
-work on any leading axes, so a chunk crosses to the host as one tensor.
+work on any leading axes, and ``pack_writer_planes``, which takes a chunk,
+so a chunk crosses to the host as one tensor.
 """
 
 from __future__ import annotations
@@ -228,6 +240,67 @@ def pack_frame_bytes(enc: FrameEncoded) -> torch.Tensor:
     return torch.cat([enc.rgb_u8, lo[..., None], hi[..., None], bits], dim=-1)
 
 
+def palette_u8(palette, k: int) -> np.ndarray:
+    """The semantic image's colours of object ids 1..k, uint8 [k, 3] (the
+    reference's rounding)."""
+    return np.clip(np.asarray(palette, np.float32)[:k] * 255.0 + 0.5, 0, 255).astype(np.uint8)
+
+
+def writer_frame_bytes(height: int, width: int, k: int) -> int:
+    """Bytes of one frame in the writer-ready layout."""
+    return height * width * (8 + 2 * k)
+
+
+def pack_writer_planes(enc: FrameEncoded, colors_u8: torch.Tensor) -> torch.Tensor:
+    """A chunk's encoded frames (leading [C] axis) in the writer-ready
+    layout: ONE uint8 tensor [C, H*W*(8 + 2K)] in which each frame is,
+    plane after contiguous plane, depth_mm ([H, W] uint16 little-endian),
+    rgb_u8 ([H, W, 3]), sem_u8 ([H, W, 3]), then one 0/255 [H, W] plane per
+    visible and then per amodal object mask.  ``colors_u8`` is
+    ``palette_u8`` [K, 3] on the device.  Every byte is the one that
+    ``unpack_frame_bytes(pack_frame_bytes(enc))`` decodes: the semantic
+    image is the host LUT's for K <= 8 (the colour of the one visible
+    object, black where none or several are) and ``tensordot``'s for K > 8
+    (the visible objects' colours summed modulo 256)."""
+    vis, amodal = enc.mask_visib, enc.mask_amodal
+    c, h, w, k = vis.shape
+    hw = h * w
+    buf = torch.empty((c, writer_frame_bytes(h, w, k)), dtype=torch.uint8, device=vis.device)
+    # the int32 depth's two low bytes (little-endian on the host and the card)
+    buf[:, : 2 * hw].view(c, h, w, 2).copy_(enc.depth_mm.view(torch.uint8).view(c, h, w, 4)[..., :2])
+    buf[:, 2 * hw : 5 * hw].view(c, h, w, 3).copy_(enc.rgb_u8)
+    vis_f = vis.to(torch.float32)
+    sem = vis_f @ colors_u8.to(torch.float32)  # sums of integers below 2**24: exact
+    if k <= 8:
+        sem = torch.where(vis_f.sum(-1, keepdim=True) == 1, sem, 0.0)
+    else:
+        sem = torch.remainder(sem, 256.0)
+    buf[:, 5 * hw : 8 * hw].view(c, h, w, 3).copy_(sem)
+    masks = buf[:, 8 * hw :].view(c, 2, k, h, w)
+    masks[:, 0].copy_(vis.permute(0, 3, 1, 2))
+    masks[:, 1].copy_(amodal.permute(0, 3, 1, 2))
+    masks.mul_(255)
+    return buf
+
+
+def writer_planes(buf, height: int, width: int, k: int) -> dict:
+    """``pack_writer_planes``' bytes on the host as views, nothing copied:
+    ``unpack_frame_bytes``' keys (depth_m aside) with a leading [C] axis,
+    the masks as 0/255 uint8 planes [C, K, H, W].  Each frame's planes are
+    C-contiguous."""
+    hw = height * width
+    b = np.asarray(buf).reshape(-1, writer_frame_bytes(height, width, k))
+    c = b.shape[0]
+    masks = b[:, 8 * hw :].reshape(c, 2, k, height, width)
+    return {
+        "rgb_u8": b[:, 2 * hw : 5 * hw].reshape(c, height, width, 3),
+        "sem_u8": b[:, 5 * hw : 8 * hw].reshape(c, height, width, 3),
+        "depth_mm": b[:, : 2 * hw].view(np.uint16).reshape(c, height, width),
+        "mask_visib": masks[:, 0],
+        "mask_amodal": masks[:, 1],
+    }
+
+
 # ---------------------------------------------------------------------------
 # Compacted chunk readback: RLE the sparse planes on the device.
 #
@@ -366,9 +439,7 @@ def _unpack_planes(dense, sparse, k: int, palette=None,
     if palette is None:
         sem = np.zeros(rgb.shape[:-1] + (3,), np.uint8)
     else:
-        pal_u8 = np.clip(
-            np.asarray(palette, np.float32)[:k] * 255.0 + 0.5, 0, 255
-        ).astype(np.uint8)
+        pal_u8 = palette_u8(palette, k)
         if k <= 8:
             # visib bits all live in mask byte 0 and are mutually
             # exclusive (weights sum <= 1): one 256-entry LUT gather

@@ -10,14 +10,27 @@ a trajectory JSON recorded by either engine (set ``physics_file`` and
 The frame loop renders in chunks of ``frame_chunk`` frames (default 8, as
 the reference's ``lax.map`` chunk programs): one projection, one binning
 (one host read of the chunk's sizes) and one compositor launch render the
-chunk's frames, which are encoded and packed into one uint8 tensor on the
-device and copied with ``non_blocking=True`` into pinned host buffers that
-are allocated once and reused.  Up to three chunks are in flight, as in
-the reference; the host unpacks the oldest and hands its frames to the BOP
-writer's thread pool while the device works on the newer ones.  Static
-mode poses the scene once per scene, dynamic mode once per chunk (C poses
-at once).  Every frame of a chunk has the bits it has in a chunk of one,
-so the files do not depend on ``frame_chunk``.
+chunk's frames, which are encoded into one uint8 tensor on the device and
+copied with ``non_blocking=True`` into a pinned host tensor of the chunk's
+own.  Up to three chunks are in flight, as in the reference; the host
+hands the oldest's frames to the BOP writer's thread pool and the video
+worker while the device works on the newer ones.  The tensor comes from
+PyTorch's caching host allocator, which reuses its block only when no view
+of it is left, so a frame the pool or the video worker still holds is
+never overwritten.  Two readback layouts (``ops/render.py``):
+
+  * by default the chunk arrives writer-ready (``pack_writer_planes``):
+    uint16 depth, rgb, the semantic image and one 0/255 plane per object
+    mask, each a contiguous view that the writer and the video worker take
+    as it is, so the issuing thread decodes no pixel between a chunk's
+    readback and its hand-off;
+  * ``compact_readback=True`` keeps the reference's RLE layout and its
+    host decode: fewer bytes over the link (5 + ceil(2K/8) bytes a pixel
+    and less, against 8 + 2K), for a link that is the bottleneck.
+
+Static mode poses the scene once per scene, dynamic mode once per chunk (C
+poses at once).  Every frame of a chunk has the bits it has in a chunk of
+one, so the files do not depend on ``frame_chunk``.
 
 Differences from the reference, all deliberate:
   * ``device`` (default "cuda") is explicit; without a CUDA device the
@@ -34,6 +47,13 @@ Differences from the reference, all deliberate:
   * the tail chunk is just shorter: nothing is compiled for a chunk size,
     so the reference's padding to a full chunk is not needed, and its
     ``readback_bytes`` counts no padding frames;
+  * the default readback is writer-ready (above), where the reference
+    moves its bit-packed frame and decodes it on the host; so
+    ``last_render_stats`` counts ``writer_ready_frames`` (frames handed on
+    without a host decode; 0 with ``compact_readback``), ``handoff_s``
+    (from each chunk's readback to its last frame's hand-off) and
+    ``slot_wait_s`` (getting each chunk's pinned host tensor and issuing
+    its copy);
   * ``rasterize_fn=None`` renders with the forward kernel (``rasterize``,
     one launch per chunk; its plain version on the CPU), where the
     reference picks its Pallas kernel on TPU and its tiled renderer
@@ -80,10 +100,10 @@ from pegasus_tpu_torch.io import colmap as colmap_io
 from pegasus_tpu_torch.io.bop_writer import BOPDatasetWriter
 from pegasus_tpu_torch.io.mesh import load_mesh
 from pegasus_tpu_torch.physics.engine import MAX_BODIES, PhysicsEngine
-from pegasus_tpu_torch.ops.render import (encode_frame, pack_frame_bytes,
+from pegasus_tpu_torch.ops.render import (encode_frame, pack_writer_planes, palette_u8,
                                           render_chunk, render_frame, rle_max_runs,
                                           rle_pack_chunk, rle_unpack_chunk,
-                                          split_frame_planes, unpack_frame_bytes)
+                                          split_frame_planes, writer_planes)
 from pegasus_tpu_torch.scene.camera_trajectory import create_camera_trajectory
 from pegasus_tpu_torch.scene.composition import (SceneTemplate, pose_scene,
                                                  poses_from_trajectory_step)
@@ -93,14 +113,15 @@ from pegasus_tpu_torch.utils.colors import generate_colors
 
 
 def _video_frame(rgb_u8, depth_mm, sem_u8, centers, K, cam_R, cam_t, colors) -> dict:
-    """``VideoStreams.write_frame``'s keywords for one rendered frame, made
-    on the video worker with the reference's arithmetic: the object-centre
-    overlay, depth in metres, the semantic image as floats in [0, 1]."""
-    from pegasus_tpu_torch.scene.video import draw_object_centers
+    """``VideoStreams``' keywords for one rendered frame, made on the video
+    worker: the object-centre overlay, and the bytes that the reference's
+    float arithmetic gives the depth and semantic streams.  The semantic
+    image's round trip through floats in [0, 1] gives every byte back, so
+    it goes as it is; depth's 8-bit plane is a lookup by millimetre."""
+    from pegasus_tpu_torch.scene.video import depth_mm_to_u8, draw_object_centers
 
     return dict(
-        rgb=rgb_u8, depth=depth_mm.astype(np.float32) / 1000.0,
-        seg=sem_u8.astype(np.float32) / 255.0,
+        rgb=rgb_u8, depth_u8=depth_mm_to_u8(depth_mm), seg_u8=sem_u8,
         center_image=draw_object_centers(rgb_u8, centers, K, cam_R, cam_t, colors),
     )
 
@@ -196,7 +217,8 @@ def _render_chunks(template, body_R, body_t, dynamic: bool, cams: CameraBatch, c
 
 def _write_frame(writer: BOPDatasetWriter, i: int, planes: dict, data_points, cam_extr,
                  objects, gt_R, gt_t) -> None:
-    """Frame ``i``'s BOP record from its unpacked ``planes``: its camera,
+    """Frame ``i``'s BOP record from its ``planes`` (a frame of
+    ``ops.render.writer_planes``' views or of ``unpack_frame_bytes``): its camera,
     the requested modalities (``rgb`` writes depth too, as the reference
     does), and its ground truth with ``cam_extr`` = (R, t) world-to-camera
     and, per (bullet id, object id) of ``objects``, the pose
@@ -290,7 +312,6 @@ class PEGASUS:
         self.QUIET = QUIET
         self.freeze_dynamic_gt_pose = freeze_dynamic_gt_pose
         self.video = None
-        self._pinned: Dict[int, torch.Tensor] = {}  # readback slot -> pinned host buffer
 
         # preload GS clouds (on the device) + COLMAP poses once
         self.gaussian_environment_pre_load: Dict[str, dict] = {}
@@ -449,18 +470,18 @@ class PEGASUS:
 
     # -- main loop ------------------------------------------------------------------
 
-    def _to_host(self, slot: int, t: torch.Tensor):
-        """Start the device->host copy of ``t`` into pinned buffer ``slot``
-        (allocated at first use, grown if too small, then reused); returns
-        (host tensor, event that completes with it, or None on the CPU,
-        where ``t`` is returned as it is)."""
-        if self.device.type != "cuda":
-            return t, None
-        buf = self._pinned.get(slot)
-        if buf is None or buf.dtype != t.dtype or buf.numel() < t.numel():
-            buf = self._pinned[slot] = torch.empty(t.numel(), dtype=t.dtype, pin_memory=True)
-        host = buf[: t.numel()].view(t.shape)
-        host.copy_(t, non_blocking=True)
+    def _to_host(self, t: torch.Tensor):
+        """Start the device->host copy of ``t`` into a host tensor of its
+        own, pinned on the card; returns (host tensor, event that completes
+        with it, or None on the CPU).  PyTorch's caching host allocator
+        hands out a pinned block again only once no tensor or numpy view of
+        it is left and its copy has completed, so the views that the writer
+        pool and the video worker hold keep their chunk's bytes."""
+        on_card = self.device.type == "cuda"
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=on_card)
+        host.copy_(t, non_blocking=on_card)
+        if not on_card:
+            return host, None
         event = torch.cuda.Event()
         event.record()
         return host, event
@@ -520,11 +541,13 @@ class PEGASUS:
         )
         objects = [(bid, self.bullet_to_real_id.get(bid, bid)) for bid in self.bullet_ids]
 
-        stats = {"readback_bytes": 0, "fetch_stall_s": 0.0, "rle_fallback_frames": 0}
+        stats = {"readback_bytes": 0, "fetch_stall_s": 0.0, "rle_fallback_frames": 0,
+                 "writer_ready_frames": 0, "handoff_s": 0.0, "slot_wait_s": 0.0}
         progress = tqdm.tqdm(total=n_frames, disable=self.QUIET)
         compact = self.compact_readback
         h, w = self.render_height, self.render_width
         n_planes = 1 + (2 * n_objects + 7) // 8
+        colors_u8 = torch.as_tensor(palette_u8(self.semantic_colors, n_objects), device=self.device)
 
         def fetch_fallback(sparse_dev):
             stats["rle_fallback_frames"] += sparse_dev.shape[0]
@@ -536,8 +559,9 @@ class PEGASUS:
             t_wait = time.perf_counter()
             if event is not None:
                 event.synchronize()
-            stats["fetch_stall_s"] += time.perf_counter() - t_wait
-            raw = host.numpy()
+            t_ready = time.perf_counter()
+            stats["fetch_stall_s"] += t_ready - t_wait
+            raw = host.numpy()  # the planes below are views of the chunk's own host tensor
             stats["readback_bytes"] += raw.nbytes
             if compact:
                 data = rle_unpack_chunk(
@@ -547,12 +571,8 @@ class PEGASUS:
                     with_depth_m=False,
                 )
             else:
-                data = unpack_frame_bytes(
-                    raw, n_objects, palette=self.semantic_colors, with_depth_m=False
-                )
-            # rgb is a view of the pinned buffer, which a later chunk
-            # reuses: the writer's pool gets a copy
-            data["rgb_u8"] = data["rgb_u8"].copy()
+                data = writer_planes(raw, h, w, n_objects)
+                stats["writer_ready_frames"] += c
             for j in range(c):
                 i = lo + j
                 planes = {key: plane[j] for key, plane in data.items()}
@@ -573,9 +593,10 @@ class PEGASUS:
                         centers, np.asarray(writer.K), *self._cam_extr_np[i], self.semantic_colors,
                     ))
                 progress.update(1)
+            stats["handoff_s"] += time.perf_counter() - t_ready
 
         pending = []
-        for k, (lo, hi, enc) in enumerate(chunks):
+        for lo, hi, enc in chunks:
             sparse_dev = None
             if compact:
                 dense, sparse = split_frame_planes(enc)
@@ -583,8 +604,10 @@ class PEGASUS:
                     dense, sparse, rle_max_runs(hi - lo, h, w, n_planes)
                 )
             else:
-                packed = pack_frame_bytes(enc)
-            host, event = self._to_host(k % DEPTH, packed)
+                packed = pack_writer_planes(enc, colors_u8)
+            t_slot = time.perf_counter()
+            host, event = self._to_host(packed)
+            stats["slot_wait_s"] += time.perf_counter() - t_slot
             pending.append((lo, hi - lo, host, event, sparse_dev))
             if len(pending) == DEPTH:
                 write(*pending.pop(0))  # overlaps the newer chunks' device work
@@ -594,6 +617,9 @@ class PEGASUS:
         self.last_render_stats = {
             "readback_bytes": int(stats["readback_bytes"]),
             "fetch_stall_s": round(stats["fetch_stall_s"], 3),
+            "writer_ready_frames": stats["writer_ready_frames"],
+            "handoff_s": round(stats["handoff_s"], 4),
+            "slot_wait_s": round(stats["slot_wait_s"], 4),
         }
         if compact:
             self.last_render_stats["rle_fallback_frames"] = stats["rle_fallback_frames"]

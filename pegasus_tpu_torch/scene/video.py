@@ -11,6 +11,7 @@ videos.  Host-side only.
 
 from __future__ import annotations
 
+import functools
 import os
 import queue
 import threading
@@ -26,8 +27,9 @@ class VideoStreams:
 
     ``write_frame`` hands over copies of ready frames (the reference's
     call); ``submit`` hands over a callable that the worker calls to make
-    ``write_frame``'s keywords, so a caller can leave the frame's making to
-    the worker too.  At most ``QUEUE_FRAMES`` frames wait: a caller that
+    the frame's keywords (``write_frame``'s, or 8-bit ``seg_u8`` and
+    ``depth_u8`` planes in place of ``seg`` and ``depth``), so a caller can
+    leave the frame's making to the worker too.  At most ``QUEUE_FRAMES`` frames wait: a caller that
     hands over more blocks until the worker has taken one.  ``close``
     writes the frames still waiting, joins the worker, releases the
     writers and re-raises the worker's first error on the caller's thread;
@@ -111,9 +113,10 @@ class VideoStreams:
         seg: np.ndarray | None = None,
         center_image: np.ndarray | None = None,
         max_distance_in_meter: float = 5.0,
+        seg_u8: np.ndarray | None = None,  # [H,W,3] uint8, in place of ``seg``
+        depth_u8: np.ndarray | None = None,  # [H,W] uint8 ``depth_to_u8``, in place of ``depth``
     ) -> None:
         cv2 = self._cv2
-        seg_u8 = None
         if seg is not None:
             seg_u8 = (np.ascontiguousarray(seg) * 255).astype(np.uint8)
         if rgb is not None:
@@ -130,10 +133,9 @@ class VideoStreams:
         if seg_u8 is not None:
             self.writers["seg"].write(cv2.cvtColor(seg_u8, cv2.COLOR_RGB2BGR))
         if depth is not None:
-            d8 = np.floor(
-                np.clip(depth / max_distance_in_meter, 0, 1) * 255
-            ).astype(np.uint8)
-            self.writers["depth"].write(cv2.cvtColor(d8, cv2.COLOR_GRAY2BGR))
+            depth_u8 = depth_to_u8(depth, max_distance_in_meter)
+        if depth_u8 is not None:
+            self.writers["depth"].write(cv2.cvtColor(depth_u8, cv2.COLOR_GRAY2BGR))
 
     def close(self) -> None:
         """Write the frames still waiting, join the worker, release the
@@ -146,6 +148,22 @@ class VideoStreams:
             w.release()
         if self._error is not None:
             raise self._error
+
+
+def depth_to_u8(depth: np.ndarray, max_distance_in_meter: float = 5.0) -> np.ndarray:
+    """The depth stream's 8-bit plane of depth in metres."""
+    return np.floor(np.clip(depth / max_distance_in_meter, 0, 1) * 255).astype(np.uint8)
+
+
+@functools.cache
+def _depth_mm_table(max_distance_in_meter: float) -> np.ndarray:
+    return depth_to_u8(np.arange(1 << 16).astype(np.float32) / 1000.0, max_distance_in_meter)
+
+
+def depth_mm_to_u8(depth_mm: np.ndarray, max_distance_in_meter: float = 5.0) -> np.ndarray:
+    """``depth_to_u8(depth_mm.astype(np.float32) / 1000)`` of uint16
+    millimetres, the same bytes, as one lookup in a table of all 65,536."""
+    return _depth_mm_table(max_distance_in_meter)[depth_mm]
 
 
 def draw_object_centers(

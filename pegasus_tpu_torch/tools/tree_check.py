@@ -10,8 +10,8 @@ outputs at the training shape.
 another commit unpacked into a git-ignored directory, or ``.``) in a child
 process: it builds the smoke's synthetic dataset (150k-splat environment,
 six 10k-splat objects), writes the static (40 frames) and dynamic (8 frames)
-640x480 scenes of ``chip_smoke.py``'s phase 5 under OUT/trees, at
-FRAME_CHUNK frames per chunk (omitted: the checkout's default, for a
+640x480 scenes of ``chip_smoke.py``'s phase 5, with their preview videos,
+under OUT/trees, at FRAME_CHUNK frames per chunk (omitted: the checkout's default, for a
 checkout that takes no ``frame_chunk``), then on 4 lanes of the card 2
 static scenes of 10 x 4 frames and 2 dynamic of 2 x 4 through
 ``run_generation(mesh=)`` (phase 13's chunk turns, ``frame_chunk`` as
@@ -19,8 +19,9 @@ above) under OUT/trees/sharded, and saves ``generate_scene_variants`` of
 V = 20 on 4 lanes (a 60k-splat plane and three boxes, 640x480) and the
 forward kernel's output and partials and K3's rows at the training shape
 to OUT/kernels.pt (of the partials, the rows the kernel writes).
-``compare`` prints how many files differ byte for byte and whether each
-tensor is bitwise equal, and exits 1 if anything differs.  Needs one CUDA
+``compare`` prints how many files differ (byte for byte; videos by their
+decoded frames, with cv2) and whether each tensor is bitwise equal, and
+exits 1 if anything differs.  Needs one CUDA
 device; run both dumps and the compare in one call, on one card.
 """
 
@@ -54,7 +55,7 @@ def _dump(root: str, out: str, frame_chunk: str | None) -> None:
     kw = {} if frame_chunk is None else {"frame_chunk": int(frame_chunk)}
     for mode, n_cams in (("static", 10), ("dynamic", 2)):
         peg = cs.scene_pegasus(data, out / "trees", mode, mode, n_cams, 4, dev, **kw)
-        peg.generate_dataset(cs.MODALITIES, save_bop=True, save_video=False)
+        peg.generate_dataset(cs.MODALITIES, save_bop=True, save_video=True)
         peg.save2bop()
     _sharded(data, out / "trees" / "sharded", dev, kw)
     variants = _variants(dev)
@@ -129,6 +130,26 @@ def _variants(dev):
                                    max_objects=b, mesh=make_mesh(devices=[dev] * 4))
 
 
+def _same_file(a: Path, b: Path) -> bool:
+    """Equal bytes; videos: the same frames when decoded."""
+    if a.suffix != ".mp4":
+        return a.read_bytes() == b.read_bytes()
+    import cv2
+    import numpy as np
+
+    ca, cb = cv2.VideoCapture(str(a)), cv2.VideoCapture(str(b))
+    try:
+        while True:
+            (ok_a, fa), (ok_b, fb) = ca.read(), cb.read()
+            if ok_a != ok_b or (ok_a and not np.array_equal(fa, fb)):
+                return False
+            if not ok_a:
+                return True
+    finally:
+        ca.release()
+        cb.release()
+
+
 def compare(a: Path, b: Path) -> bool:
     import torch
 
@@ -136,10 +157,11 @@ def compare(a: Path, b: Path) -> bool:
     if files != sorted(p.relative_to(b / "trees") for p in (b / "trees").rglob("*") if p.is_file()):
         print(f"{a} vs {b}: the trees hold other files", flush=True)
         return False
-    differ = [str(f) for f in files if (a / "trees" / f).read_bytes() != (b / "trees" / f).read_bytes()]
+    differ = [str(f) for f in files if not _same_file(a / "trees" / f, b / "trees" / f)]
     ka, kb = torch.load(a / "kernels.pt"), torch.load(b / "kernels.pt")
     same = {k: torch.equal(ka[k], kb[k]) for k in ka}
-    print(f"{a.name} vs {b.name}: {len(files)} files, {len(differ)} differ {differ[:10]}; "
+    videos = sum(f.suffix == ".mp4" for f in files)
+    print(f"{a.name} vs {b.name}: {len(files)} files ({videos} videos), {len(differ)} differ {differ[:10]}; "
           f"kernel outputs bitwise equal {same}", flush=True)
     return not differ and all(same.values())
 

@@ -5,7 +5,9 @@ trajectory over a small synthetic dataset; the BOP trees written at
 ``frame_chunk`` 1, 3 and 8 must be byte-identical (4 frames: chunks of 1,
 3 + 1 and 4), static, dynamic and with ``compact_readback``, with one
 ``bin_splats`` host read and one forward-kernel launch per chunk.  A scene
-posed three ways at once must equal each pose applied alone, bitwise.
+posed three ways at once must equal each pose applied alone, bitwise.  The
+writer-ready readback's planes, made on the card at 640x480, equal the host
+decode of the bit-packed frame, and its trees the compact readback's.
 Needs a CUDA device and ``nvcc``; imports nothing of JAX:
 
     python -m pytest -m gpu tests/test_torch_chunk_card.py
@@ -20,9 +22,13 @@ import torch
 from pegasus_tpu_torch.assets.registry import Asset
 from pegasus_tpu_torch.ops import rasterize_cuda
 from pegasus_tpu_torch.ops.binning import bin_splats
+from pegasus_tpu_torch.ops.render import (pack_frame_bytes, pack_writer_planes, palette_u8,
+                                          unpack_frame_bytes, writer_planes)
 from pegasus_tpu_torch.pegasus import PEGASUS
 from pegasus_tpu_torch.scene.composition import pose_scene
 from pegasus_tpu_torch.testing import SMOKE_ENV, SMOKE_OBJECTS, build_synthetic_dataset
+
+from test_torch_writer_ready import encoded_chunk
 
 pytestmark = pytest.mark.gpu
 
@@ -92,3 +98,32 @@ def test_pose_scene_of_three_poses_on_card(cuda, data, tmp_path):
         for name in ("xyz", "rot", "f_rest"):
             assert torch.equal(getattr(posed.pose_frame(f), name), getattr(one, name)), (f, name)
     peg.pegasus_dataset.close()
+
+
+@pytest.mark.parametrize("k", [3, 6, 9, 33])
+def test_writer_planes_on_card(cuda, k):
+    rng = np.random.default_rng(k)
+    for exclusive in (True, False):
+        enc, palette = encoded_chunk(rng, 8, 480, 640, k, exclusive, device=cuda)
+        got = writer_planes(pack_writer_planes(enc, torch.from_numpy(palette_u8(palette, k)).to(cuda))
+                            .cpu().numpy(), 480, 640, k)
+        want = unpack_frame_bytes(pack_frame_bytes(enc).cpu().numpy(), k, palette=palette,
+                                  with_depth_m=False)
+        for name in ("rgb_u8", "sem_u8", "depth_mm"):
+            np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+        for name in ("mask_visib", "mask_amodal"):
+            np.testing.assert_array_equal(got[name], np.moveaxis(want[name], -1, 1) * np.uint8(255),
+                                          err_msg=name)
+
+
+@pytest.mark.parametrize("mode", ["static", "dynamic"])
+def test_writer_ready_tree_equals_compact_on_card(cuda, data, tmp_path, mode):
+    trees = {}
+    for compact in (False, True):
+        peg = _pegasus(data, tmp_path / str(compact), cuda, mode, 3, compact)
+        peg.generate_dataset(MODALITIES, save_bop=True, save_video=False)
+        peg.save2bop()
+        assert peg.last_render_stats["writer_ready_frames"] == (0 if compact else 4)
+        root = tmp_path / str(compact)
+        trees[compact] = {p.relative_to(root): p.read_bytes() for p in sorted(root.rglob("*.png"))}
+    assert len(trees[False]) > 20 and trees[False] == trees[True]

@@ -194,7 +194,12 @@ def test_run_generation_matches_reference(root, tmp_path):
     stats = run_generation(config, [env], objs, device="cpu")
     assert len(stats.records) == 2 and stats.summary()["mean_frames_per_s"] > 0
     for rec, want in zip(stats.records, ref.records):
-        assert rec["readback_bytes"] == want["readback_bytes"] > 0 and rec["fetch_stall_s"] >= 0
+        # the port's frames arrive writer-ready: 8 + 2K bytes a pixel, against
+        # the reference's bit-packed 5 + ceil(2K/8)
+        k = rec["n_objects"]
+        assert (rec["readback_bytes"] * (5 + -(-2 * k // 8)) == want["readback_bytes"] * (8 + 2 * k)
+                and want["readback_bytes"] > 0 and rec["fetch_stall_s"] >= 0)
+        assert rec["writer_ready_frames"] == rec["frames"] and rec["handoff_s"] > 0
         assert {"t_physics", "t_setup", "t_render", "t_finalize"} <= set(rec)
         for key in ("scene_id", "frames", "splats", "n_objects", "env", "object_ids"):
             assert rec[key] == want[key], key

@@ -112,12 +112,16 @@ def test_slice_matches_reference(recorded, tmp_path, mode, cam_mode, freeze, fra
     got = _run(PEGASUS(gs_env_list=[env], gs_object_list=objs, device="cpu", frame_chunk=frame_chunk,
                        **_config(root, tmp_path / "port", mode, cam_mode, freeze)),
                physics_file, env_name, "slice")
-    assert set(got.last_render_stats) == {"readback_bytes", "fetch_stall_s"}
+    assert set(got.last_render_stats) == {"readback_bytes", "fetch_stall_s", "writer_ready_frames",
+                                          "handoff_s", "slot_wait_s"}
+    assert got.last_render_stats["writer_ready_frames"] == len(got.viewport_cam_list)
     # the reference pads its tail chunk to a full one and reads the padding
-    # back; the port's tail chunk is just shorter
+    # back; the port's tail chunk is just shorter, and arrives writer-ready:
+    # 8 + 2K bytes a pixel against the reference's bit-packed 5 + ceil(2K/8)
     n_chunks = -(-len(got.viewport_cam_list) // frame_chunk)
-    assert (got.last_render_stats["readback_bytes"] * n_chunks * frame_chunk
-            == ref.last_render_stats["readback_bytes"] * len(got.viewport_cam_list))
+    k = len(OBJECTS)
+    assert (got.last_render_stats["readback_bytes"] * n_chunks * frame_chunk * (5 + -(-2 * k // 8))
+            == ref.last_render_stats["readback_bytes"] * len(got.viewport_cam_list) * (8 + 2 * k))
     assert not list((tmp_path / "port").rglob("*.mp4"))  # save_video=False builds no streams
 
     ref_root, got_root = tmp_path / "ref" / "slice", tmp_path / "port" / "slice"

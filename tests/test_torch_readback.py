@@ -158,9 +158,9 @@ def test_pegasus_compact_readback_writes_the_same_tree(recorded, tmp_path, mode)
     for f in files:
         assert (a / f).read_bytes() == (b / f).read_bytes(), f
     assert stats["compact"]["rle_fallback_frames"] == 0 and "rle_fallback_frames" not in stats["packed"]
-    # 80x60, two objects, the 4 frames one chunk (frame_chunk=8): 6 B/px
-    # packed against one buffer of 8 + 5 x 1024 + 4 B/px
-    assert stats["packed"]["readback_bytes"] == 4 * 60 * 80 * 6
+    # 80x60, two objects, the 4 frames one chunk (frame_chunk=8): 8 + 2K =
+    # 12 B/px writer-ready against one buffer of 8 + 5 x 1024 + 4 B/px
+    assert stats["packed"]["readback_bytes"] == 4 * 60 * 80 * 12
     assert stats["compact"]["readback_bytes"] == 8 + 5 * 1024 + 4 * 60 * 80 * 4
 
 

@@ -19,7 +19,7 @@ import pytest
 
 from pegasus_tpu_torch.config import GenerationConfig
 from pegasus_tpu_torch.pegasus import _video_frame
-from pegasus_tpu_torch.scene.video import VideoStreams, draw_object_centers
+from pegasus_tpu_torch.scene.video import VideoStreams, depth_mm_to_u8, draw_object_centers
 
 W, H, FPS = 64, 48, 10
 CHUNK = 8
@@ -112,6 +112,19 @@ def test_worker_streams_equal_streams_encoded_here(route, n_frames, tmp_path):
         assert len(got) == len(want) == n_frames, name
         for i, (g, w) in enumerate(zip(got, want)):
             assert np.array_equal(g, w), (name, i)
+
+
+def test_the_chunk_loops_planes_are_the_float_arithmetics_bytes():
+    """The chunk loop hands the worker the semantic image and depth's
+    8-bit plane as bytes: the bytes of the float arithmetic written out in
+    ``encode_here``, for every uint8 and every uint16 millimetre value."""
+    x = np.arange(256, dtype=np.uint8)
+    assert np.array_equal((np.ascontiguousarray(x.astype(np.float32) / 255.0) * 255).astype(np.uint8), x)
+    mm = np.arange(1 << 16, dtype=np.uint16)
+    for distance in (5.0, 2.5):
+        want = np.floor(np.clip((mm.astype(np.float32) / 1000.0) / distance, 0, 1) * 255).astype(np.uint8)
+        got = depth_mm_to_u8(mm.reshape(256, 256), distance)
+        assert got.dtype == np.uint8 and np.array_equal(got.reshape(-1), want), distance
 
 
 def test_the_workers_error_surfaces_from_close(tmp_path):
